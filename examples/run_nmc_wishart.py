@@ -1,5 +1,5 @@
 """Mirror of the reference's NMC main() (/root/reference/NMC/nmc.py:644)
-on a planted Wishart instance, TPU-native API."""
+on a planted Wishart instance, through the package API."""
 import jax
 import numpy as np
 

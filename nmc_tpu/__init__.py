@@ -1,4 +1,4 @@
-"""nmc_tpu — TPU-native Nonlocal Monte Carlo framework.
+"""nmc_tpu — Nonlocal Monte Carlo on accelerators, in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 usra-riacs/Nonlocal-Monte-Carlo (reference at /root/reference): NMC
@@ -36,12 +36,11 @@ from .ops.spectral import (SpectralResult, auto_subspace_dim,
                            spectral_candidates,
                            spectral_candidates_device, spectral_search)
 from .exact import (exact_energy_bound, solve_exact_device,
-                    solve_exact_enum, solve_exact_host,
-                    solve_exact_pallas)
+                    solve_exact_enum, solve_exact_host)
 from .exact_chimera import solve_exact_chimera
 from .beam_chimera import (pad_to_chimera_grid, refine_strips,
                            solve_beam_chimera, solve_beam_chimera_multi)
-from .beam_chimera_tpu import solve_beam_chimera_tpu
+from .beam_chimera_device import solve_beam_chimera_device
 from .portfolio import SolveResult, SolveStage, portfolio_solve
 from .refine import partition_crossover, refine_family, tree_refine_state
 from .tree_moves import tree_refine
@@ -66,10 +65,9 @@ __all__ = [
     "SolveResult", "SolveStage", "portfolio_solve",
     "tree_refine", "tree_refine_state", "refine_family",
     "partition_crossover",
-    "solve_exact_host", "solve_exact_device", "solve_exact_pallas",
-    "solve_exact_enum", "exact_energy_bound", "solve_exact_chimera",
+    "solve_exact_host", "solve_exact_device", "solve_exact_enum", "exact_energy_bound", "solve_exact_chimera",
     "solve_beam_chimera", "solve_beam_chimera_multi",
-    "solve_beam_chimera_tpu", "refine_strips", "pad_to_chimera_grid",
+    "solve_beam_chimera_device", "refine_strips", "pad_to_chimera_grid",
     "SpectralResult", "spectral_search", "spectral_candidates",
     "spectral_candidates_device", "auto_subspace_dim",
     "difference_map_rounding", "difference_map_rounding_device",

@@ -226,7 +226,7 @@ def refine_strips(prob, s, rows: Optional[int] = None,
     Deterministic.
 
     `sub_solver(sub_prob, rows, cols) -> (e, s)` overrides the strip
-    solver (e.g. the jitted TPU beam from beam_chimera_tpu).
+    solver (e.g. the jitted device beam from beam_chimera_device).
     """
     from .core.problem import IsingProblem
     from .exact_chimera import solve_exact_chimera

@@ -21,6 +21,9 @@ import sys
 
 import numpy as np
 
+# largest instance the meet-in-the-middle device tier takes
+EXACT_DEVICE_MAX_N = 40
+
 
 def _load_problem(args):
     from .core.problem import IsingProblem
@@ -50,6 +53,13 @@ def _add_problem_args(p):
     p.add_argument("--block-size", type=int, default=128)
     p.add_argument("--coloring", action="store_true",
                    help="graph-colored blocks (sparse topologies)")
+    p.add_argument("--save-state", help="write the best +-1 state here "
+                                        "(npt, icm, sharded)")
+
+
+def _save_state(args, state):
+    if getattr(args, "save_state", None):
+        np.savetxt(args.save_state, np.asarray(state), fmt="%+d")
 
 
 def _metrics(args):
@@ -123,6 +133,7 @@ def cmd_npt(args):
     )
     res = npt_run(prob, beta_list, doNMC, cfg, jax.random.PRNGKey(args.seed),
                   metrics=_metrics(args))
+    _save_state(args, res.best_state)
     print(json.dumps({
         "Energy": [float(e) for e in res.Energy],
         "min_energy": res.min_energy,
@@ -145,6 +156,7 @@ def cmd_icm(args):
         use_coloring=args.coloring, device_icm=args.device_icm,
     )
     res = apt_icm_run(prob, beta_list, cfg, jax.random.PRNGKey(args.seed))
+    _save_state(args, res.best_state)
     print(json.dumps({
         "Energy": [float(e) for e in res.Energy],
         "min_energy": res.min_energy,
@@ -185,6 +197,7 @@ def cmd_sharded(args):
     e_best, m_best = npt.best(state)
     accepted = host_gather(metrics.accepted)
     if jax.process_index() == 0:
+        _save_state(args, m_best)
         print(json.dumps({
             "min_energy": float(prob.energy(m_best)),
             "rounds": rounds_done,
@@ -331,16 +344,16 @@ def cmd_refine(args):
 
 
 def cmd_exact(args):
-    """Exact ground state (meet-in-the-middle on the MXU) — the
+    """Exact ground state (meet-in-the-middle as matmuls) — the
     capability the reference lacks: it ships ground truths, this derives
-    them. n <= ~50 on TPU (Pallas tier), ~40 XLA tier, ~30 host."""
+    them. n <= 28 on the host, <= 40 on the device, chimera layouts
+    beyond."""
     import time
 
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    from .exact import (solve_exact_device, solve_exact_host,
-                        solve_exact_pallas)
+    from .exact import solve_exact_device, solve_exact_host
 
     prob, target, kind, base = _detect_instance(args.path, args.kind,
                                                 None)
@@ -348,39 +361,31 @@ def cmd_exact(args):
     if backend == "auto":
         if prob.n <= 28:
             backend = "host"
-        elif prob.n <= 40:
+        elif prob.n <= EXACT_DEVICE_MAX_N:
             backend = "device"
         else:
             # beyond the MITM tiers' reach a chimera layout is the only
             # exact route (tropical DP, host-side, no accelerator)
+            from .exact_chimera import chimera_layout
             try:
-                from .exact_chimera import chimera_layout
                 chimera_layout(np.asarray(prob.J))
-                backend = "chimera"
             except ValueError:
-                backend = "pallas"
-    if (backend == "pallas" and not args.interpret
-            and jax.default_backend() == "cpu"):
-        raise SystemExit(
-            "the pallas tier compiles for TPU; on CPU use --backend host "
-            f"(n <= 34) or --interpret (tiny n only) — got n={prob.n}")
+                raise SystemExit(
+                    f"exact: n={prob.n} exceeds the meet-in-the-middle "
+                    f"limit n <= {EXACT_DEVICE_MAX_N} and the instance "
+                    f"has no chimera layout") from None
+            backend = "chimera"
     t0 = time.perf_counter()
     if backend == "chimera":
         from .exact_chimera import solve_exact_chimera
         e, s = solve_exact_chimera(prob)
     elif backend == "host":
         e, s = solve_exact_host(prob)
-    elif backend == "device":
+    else:
         e, s = solve_exact_device(prob, block_a=args.block_a,
                                   block_b=args.block_b)
-    else:
-        e, s = solve_exact_pallas(prob, block_a=args.block_a,
-                                  block_b=args.block_b,
-                                  interpret=args.interpret,
-                                  planes=args.planes)
     wall = time.perf_counter() - t0
     rec = dict(name=base, n=prob.n, kind=kind, backend=backend,
-               planes=(args.planes if backend == "pallas" else None),
                energy_raw=e, wall_seconds=round(wall, 3),
                shipped_target=target if (target is None
                                          or np.isfinite(target)) else None,
@@ -418,12 +423,12 @@ def cmd_beam(args):
     solve_prob, rows, cols, n_orig = pad_to_chimera_grid(prob)
     t0 = time.perf_counter()
     if args.device:
-        from .beam_chimera_tpu import solve_beam_chimera_tpu
-        e, s, info = solve_beam_chimera_tpu(solve_prob, rows=rows,
+        from .beam_chimera_device import solve_beam_chimera_device
+        e, s, info = solve_beam_chimera_device(solve_prob, rows=rows,
                                             cols=cols,
                                             beam=1 << args.beam)
         if args.refine:
-            sub = (lambda sp, R, w: solve_beam_chimera_tpu(
+            sub = (lambda sp, R, w: solve_beam_chimera_device(
                 sp, rows=R, cols=w, beam=1 << max(4, args.beam - 1))[:2])
             e, s, moves = refine_strips(solve_prob, s, rows=rows,
                                         cols=cols,
@@ -646,23 +651,17 @@ def main(argv=None):
 
     p = sub.add_parser(
         "exact",
-        help="EXACT ground state by meet-in-the-middle enumeration on "
-             "the MXU (n <= ~50 on one chip) — independently verifies "
-             "shipped ground truths")
+        help="EXACT ground state by meet-in-the-middle enumeration "
+             f"(n <= {EXACT_DEVICE_MAX_N}, chimera layouts beyond) — "
+             "independently verifies shipped ground truths")
     p.add_argument("path", help="instance file (edge-list dialects)")
     p.add_argument("--kind", default="auto",
                    choices=["auto", "wishart", "chimera", "dcl",
                             "contrived"])
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "host", "device", "pallas", "chimera"])
+                   choices=["auto", "host", "device", "chimera"])
     p.add_argument("--block-a", type=int, default=512)
     p.add_argument("--block-b", type=int, default=4096)
-    p.add_argument("--interpret", action="store_true",
-                   help="interpret-mode Pallas (debugging)")
-    p.add_argument("--planes", default="auto",
-                   choices=["auto", "on", "off"],
-                   help="int8 digit-plane cross-term matmuls (pallas "
-                        "tier; integer-coupled instances, bound < 2^29)")
     p.add_argument("--save-state", help="write the ground state here")
     p.add_argument("--out", help="append the JSON record here")
     p.add_argument("--cpu", action="store_true")

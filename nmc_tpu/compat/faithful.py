@@ -3,7 +3,7 @@
 A fresh numpy implementation of the reference's sequential random-scan
 heat-bath kernel (/root/reference/NMC/nmc.py:28-91), including the
 state-keyed LRU local-field memoization (/root/reference/NMC/nmc.py:73-84).
-Used for cross-validation of the TPU engine's statistics and for the
+Used for cross-validation of the device engine's statistics and for the
 `use_hash_table` code path on hosts; NOT a performance path. RNG is
 numpy's Generator (the reference uses the legacy global RNG seeded at
 import, /root/reference/NMC/nmc.py:10 — exact bit-reproduction across RNG

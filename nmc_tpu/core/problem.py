@@ -9,7 +9,7 @@ with J symmetric and zero-diagonal (reference: /root/reference/NMC/nmc.py:386,
 transient scipy csr); here the canonical host-side container is `IsingProblem`
 (numpy, cheap), and the device-side container is `BlockedProblem`: J pre-tiled
 into row-blocks and diagonal blocks so the Gibbs sweep engine (ops/sweeps.py)
-can keep cached local fields phi = J@m + h up to date with one MXU matmul per
+can keep cached local fields phi = J@m + h up to date with one matrix product per
 spin block instead of the reference's per-spin full mat-vec
 (/root/reference/NMC/nmc.py:86).
 """
@@ -183,6 +183,23 @@ def block_problem(
     )
 
 
+def tile_columns(pattern: np.ndarray, block_size: int):
+    """Nonzero column tiles of each row block of a [n_pad, n_pad] coupling
+    pattern (one instance, or the union over a family): returns
+    (col_idx [nB, K] int32 padded with 0, counts [nB] int32)."""
+    n_pad = pattern.shape[0]
+    nB = n_pad // block_size
+    nz = np.asarray(pattern != 0).reshape(nB, block_size, nB, block_size)
+    per = [np.flatnonzero(nz[b].any(axis=(0, 2))) for b in range(nB)]
+    K = max(1, max((len(p) for p in per), default=1))
+    col_idx = np.zeros((nB, K), np.int32)
+    counts = np.zeros(nB, np.int32)
+    for b, p in enumerate(per):
+        col_idx[b, :len(p)] = p
+        counts[b] = len(p)
+    return col_idx, counts
+
+
 def block_sparse_tiles(blocked: BlockedProblem):
     """Block-sparse view of J for the sweep engine's phi update.
 
@@ -190,21 +207,16 @@ def block_sparse_tiles(blocked: BlockedProblem):
     containing any nonzero coupling: returns (col_idx [nB, K] int32,
     J_tiles [nB, K, B, B]) padded with zero tiles up to the max count K.
     On sparse topologies with locality-preserving orderings this shrinks
-    the phi-update matmul work by n_pad / (K * B) (see docs/BENCHMARKS.md).
+    the phi-update matmul work by n_pad / (K * B).
     """
-    nB = blocked.num_blocks
     B = blocked.block_size
     J_rows = blocked.J_rows                      # [nB, B, n_pad]
-    per_block = []
-    for b in range(nB):
-        tiles = J_rows[b].reshape(B, nB, B)      # [B, col_tile, B]
-        nz = np.flatnonzero(np.any(tiles != 0, axis=(0, 2)))
-        per_block.append(nz)
-    K = max((len(nz) for nz in per_block), default=1) or 1
-    col_idx = np.zeros((nB, K), dtype=np.int32)
+    col_idx, counts = tile_columns(
+        J_rows.reshape(blocked.n_pad, blocked.n_pad), B)
+    nB, K = col_idx.shape
     J_tiles = np.zeros((nB, K, B, B), dtype=J_rows.dtype)
-    for b, nz in enumerate(per_block):
-        for k, j in enumerate(nz):
-            col_idx[b, k] = j
+    for b in range(nB):
+        for k in range(counts[b]):
+            j = col_idx[b, k]
             J_tiles[b, k] = J_rows[b][:, j * B:(j + 1) * B]
     return col_idx, J_tiles

@@ -1,4 +1,4 @@
-"""Exact ground states by meet-in-the-middle enumeration on the MXU.
+"""Exact ground states by meet-in-the-middle enumeration as matmuls.
 
 Split the spins into halves A|B. With SA = all +-1 assignments of A
 (2^a rows) and SB of B (2^b rows),
@@ -6,28 +6,27 @@ Split the spins into halves A|B. With SA = all +-1 assignments of A
     E(sA, sB) = EA(sA) + EB(sB) + sA . J_AB . sB
 
 so the full 2^n energy table is a rank-(a) matmul `SA @ J_AB @ SB^T`
-plus broadcast row/column energies — exactly the shape the TPU's
-systolic array wants. The minimum over the table is the EXACT ground
+plus broadcast row/column energies — exactly the shape a matrix unit
+wants. The minimum over the table is the EXACT ground
 state; no sampling, no tolerance. The reference has no exact solver —
 its quality anchors are externally shipped ground truths; this module
 lets the framework *verify* (and extend) those truths independently up
-to n≈50 on one chip (2^49 energies ≈ 5e16 MACs ≈ minutes on a v5e).
+to n≈40 (the device tier).
 
 Global spin-flip symmetry (E(-s) = E(s) for h = 0) pins the first A
 spin to +1, halving the table.
 
 Exactness in f32: every energy is an integer-weighted +-1 sum bounded
 by `sum|J| + sum|h|`; if that bound is < 2^24, f32 arithmetic is exact.
-Matmuls run at `Precision.HIGHEST` (the MXU's default f32 path does
-bf16 passes that corrupt integers > 256 — same lesson as the matmul
-Houdayer label propagation, ops/clusters.py).
+Matmuls run at `Precision.HIGHEST`: a default-precision f32 matmul may
+run in TF32 (10 mantissa bits), which corrupts integers > 2^11 — same
+lesson as the matmul Houdayer label propagation, ops/clusters.py.
 
-Three tiers:
+Tiers:
 - `solve_exact_host`  — numpy, n <= ~34 (wall grows 2x per spin).
 - `solve_exact_device`— jit + lax.scan over A-blocks x B-tiles; the
-  energy table tiles stream through HBM (fine to n≈40).
-- `solve_exact_pallas`— fused Pallas kernel: the table tile never
-  leaves VMEM, min/argmin reduced in the matmul epilogue (n to ~50).
+  energy table tiles stream through device memory (fine to n≈40).
+- `solve_exact_chimera` (exact_chimera.py) — chimera layouts beyond.
 """
 from __future__ import annotations
 
@@ -35,8 +34,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["solve_exact_host", "solve_exact_device", "solve_exact_pallas",
-           "solve_exact_enum", "exact_energy_bound", "signs_table"]
+__all__ = ["solve_exact_host", "solve_exact_device", "solve_exact_enum", "exact_energy_bound", "signs_table"]
 
 
 def exact_energy_bound(J, h=None) -> float:
@@ -81,7 +79,7 @@ def solve_exact_host(prob, *, symmetry: Optional[bool] = None,
     n = J.shape[0]
     if n > 34:
         raise ValueError(f"solve_exact_host is O(2^n): n={n} > 34 "
-                         "(use solve_exact_device on TPU)")
+                         "(use solve_exact_device)")
     a, b = _split(J, h)
     if symmetry is None:
         symmetry = not np.any(h)
@@ -141,14 +139,13 @@ def solve_exact_device(prob, *, symmetry: Optional[bool] = None,
                        block_a: int = 1024, block_b: int = 1 << 15,
                        verify: bool = True) -> Tuple[float, np.ndarray]:
     """Exact ground state on the accelerator: the B-side tables (EB,
-    CBT = SB.JX^T) live in HBM; a double lax.scan streams (A-block x
+    CBT = SB.JX^T) live in device memory; a double lax.scan streams (A-block x
     B-tile) energy tiles, each one Precision.HIGHEST matmul with an
     immediate min/argmin epilogue.
 
-    Practical to n≈40 on a v5e (each tile makes an HBM round trip in
-    this XLA variant; the Pallas kernel keeps it in VMEM). f32
-    exactness is guarded via `exact_energy_bound` < 2^24. Indices are
-    i32 (fine to n=64: each half-table index < 2^31).
+    Practical to n≈40 (each energy tile makes a device-memory round
+    trip). f32 exactness is guarded via `exact_energy_bound` < 2^24.
+    Indices are i32 (fine to n=64: each half-table index < 2^31).
     """
     import jax
     import jax.numpy as jnp
@@ -191,7 +188,8 @@ def solve_exact_device(prob, *, symmetry: Optional[bool] = None,
             SA = a_signs(off)
             EA = (-0.5 * jnp.einsum(
                 "ri,ij,rj->r", SA, JA32, SA,
-                precision=jax.lax.Precision.HIGHEST) - SA @ hA32)
+                precision=jax.lax.Precision.HIGHEST)
+                  - jnp.dot(SA, hA32, precision=jax.lax.Precision.HIGHEST))
             valid = (off + jnp.arange(block_a, dtype=jnp.int32)) < total_a
             EA = jnp.where(valid, EA, jnp.float32(jnp.inf))
 
@@ -234,108 +232,6 @@ def solve_exact_device(prob, *, symmetry: Optional[bool] = None,
     if verify:
         assert abs(e64 - float(e)) <= 1e-3 * max(1.0, abs(e64)), \
             f"device/host energy mismatch: {e} vs {e64}"
-    return e64, s
-
-
-def _integer_problem(J, h) -> bool:
-    """True when every table entry is guaranteed integer: integer J/h
-    AND zero diagonal (IsingProblem documents but does not enforce it;
-    a nonzero diagonal makes the half-energies half-integer, which the
-    int32 path would silently round)."""
-    return bool(np.all(J == np.round(J)) and np.all(h == np.round(h))
-                and not np.any(np.diag(J)))
-
-
-def solve_exact_pallas(prob, *, symmetry: Optional[bool] = None,
-                       block_a: int = 512, block_b: int = 4096,
-                       interpret: bool = False, planes: str = "auto",
-                       verify: bool = True) -> Tuple[float, np.ndarray]:
-    """Exact ground state via the fused Pallas kernel
-    (ops/exact_pallas.py): every energy tile stays in VMEM, reduced to a
-    per-A-row running (min, argmin-b) in the matmul epilogue. HBM sees
-    only the +-1 tables — this is the n≈44-50 tier (2^49 energies in
-    ~minutes on a v5e; the XLA variant would stream petabytes).
-
-    `planes` selects the cross-term matmul path: "auto" uses the int8
-    digit-plane kernel (`mitm_min_pallas_i8`) whenever the instance is
-    integer-coupled with |energy| bound < 2^29 — 2-3 single-pass int8
-    MXU matmuls instead of 6 Precision.HIGHEST f32 passes, and a wider
-    exactness window (2^29 vs 2^24). "on" requires it (raises when the
-    instance doesn't qualify); "off" forces the f32 kernel.
-    """
-    import jax.numpy as jnp
-
-    from .ops.exact_pallas import (I32_PAD, int8_planes, mitm_min_pallas,
-                                   mitm_min_pallas_i8)
-
-    if planes not in ("auto", "on", "off"):
-        raise ValueError(f"planes must be auto|on|off, got {planes!r}")
-    J = np.asarray(prob.J, np.float64)
-    h = np.asarray(prob.h, np.float64)
-    bound = exact_energy_bound(J, h)
-    int_ok = _integer_problem(J, h) and bound < float(1 << 29)
-    if planes == "on" and not int_ok:
-        raise ValueError("planes='on' requires an integer-coupled "
-                         "instance with energy bound < 2^29")
-    use_i8 = int_ok and planes != "off"
-    if not use_i8 and bound >= float(1 << 24):
-        raise ValueError("coupling magnitudes too large for exact f32 "
-                         "meet-in-the-middle (bound >= 2^24)")
-    a, b = _split(J, h)
-    if symmetry is None:
-        symmetry = not np.any(h)
-    abits = a - 1 if symmetry else a
-    total_a = 1 << abits
-    block_a = min(block_a, total_a)
-    block_b = min(block_b, 1 << b)
-    TA = ((total_a + block_a - 1) // block_a) * block_a
-    JA, hA = J[:a, :a], h[:a]
-
-    # A-side tables, built in bounded f64 blocks (+inf pads); f64
-    # storage on the int path (integers < 2^29 do not fit f32)
-    tab_dt = np.float64 if use_i8 else np.float32
-    SA = np.ones((TA, a), np.float32)
-    EA = np.full(TA, np.inf, tab_dt)
-    step = 1 << 18
-    for off in range(0, total_a, step):
-        cnt = min(step, total_a - off)
-        Sblk = signs_table(abits, off, cnt, np.float64)
-        if symmetry:
-            Sblk = np.concatenate([np.ones((cnt, 1)), Sblk], axis=1)
-        SA[off:off + cnt] = Sblk
-        EA[off:off + cnt] = _half_energies(JA, hA, Sblk)
-
-    EB, CBT = _b_tables(J, h, a, b, dtype=tab_dt)
-    if use_i8:
-        # integer path: +-1 tables as int8, energies as int32 (pad rows
-        # get the I32_PAD sentinel), cross term as base-256 digit planes
-        EA_i = np.where(np.isfinite(EA), np.round(EA), I32_PAD)
-        min_e, arg_b = mitm_min_pallas_i8(
-            jnp.asarray(SA.astype(np.int8)),
-            jnp.asarray(int8_planes(CBT)),
-            jnp.asarray(EA_i.astype(np.int32)),
-            jnp.asarray(np.round(EB).astype(np.int32)),
-            block_a=block_a, block_b=block_b, interpret=interpret)
-    else:
-        min_e, arg_b = mitm_min_pallas(
-            jnp.asarray(SA), jnp.asarray(CBT), jnp.asarray(EA),
-            jnp.asarray(EB), block_a=block_a, block_b=block_b,
-            interpret=interpret)
-    min_e = np.asarray(min_e)
-    arg_b = np.asarray(arg_b)
-    ra = int(np.argmin(min_e))
-    rb = int(arg_b[ra])
-    if symmetry:
-        sA = np.concatenate([[1.0], signs_table(abits, ra, 1,
-                                                np.float64)[0]])
-    else:
-        sA = signs_table(a, ra, 1, np.float64)[0]
-    sB = signs_table(b, rb, 1, np.float64)[0]
-    s = np.concatenate([sA, sB])
-    e64 = float(prob.energy(s))
-    if verify:
-        assert abs(e64 - float(min_e[ra])) <= 1e-3 * max(1.0, abs(e64)), \
-            f"kernel/host energy mismatch: {min_e[ra]} vs {e64}"
     return e64, s
 
 

@@ -1,6 +1,6 @@
 """APT preprocessor — adaptive inverse-temperature schedule generation.
 
-TPU-native rebuild of /root/reference/NPT/apt_preprocessor.py: iteratively
+Accelerator rebuild of /root/reference/NPT/apt_preprocessor.py: iteratively
 grow a beta ladder from measured energy fluctuations. At each rung, `num_rng`
 independent Gibbs chains run at the current beta (the reference forks one OS
 process per chain, apt_preprocessor.py:160-176; here they are one batch axis
@@ -52,7 +52,7 @@ class APTConfig:
     checkpoint_path: Optional[str] = None
     checkpoint_every: int = 0     # snapshot every K rungs (0 = off)
     resume: bool = False
-    # TPU execution knobs
+    # device execution knobs
     block_size: int = 128
     use_coloring: bool = False
     dtype: str = "float32"

@@ -1,6 +1,6 @@
 """APT + ICM — parallel tempering with Houdayer isoenergetic cluster moves.
 
-TPU-native rebuild of /root/reference/NPT/apt_ICM.py. Per swap round the
+Accelerator rebuild of /root/reference/NPT/apt_ICM.py. Per swap round the
 reference runs a SERIAL double loop over num_replicas x 10 sub-replicas
 (apt_ICM.py:197-213, `num_cores` accepted but unused); here all R*S chains
 are one batch axis of a single jitted sweep call. The Houdayer move pairs
@@ -65,7 +65,7 @@ class APTICMConfig:
                                            # runs to the fixed point
     record_last_round_m: bool = False  # keep the last round's per-sweep
                                        # history (reference M layout)
-    # TPU execution knobs
+    # device execution knobs
     block_size: int = 128
     use_coloring: bool = False
     dtype: str = "float32"

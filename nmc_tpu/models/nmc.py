@@ -1,6 +1,6 @@
 """NMC — Non-equilibrium (Nonlocal) Monte Carlo driver.
 
-TPU-native rebuild of the reference's NMC class (/root/reference/NMC/nmc.py):
+Accelerator rebuild of the reference's NMC class (/root/reference/NMC/nmc.py):
 an initial annealed Gibbs run finds a good state m*, then cycles of
   (C)  heated-cluster sweeps  — backbone spins sample at beta/temp_x,
        everything else frozen,
@@ -66,7 +66,7 @@ class NMCConfig:
                                           # of dense [N,N] message matrices
     normalize: bool = True
     record_m: bool = True
-    # TPU execution knobs
+    # device execution knobs
     num_chains: int = 1
     block_size: int = 128
     use_coloring: bool = False

@@ -1,6 +1,6 @@
 """NPT — replica exchange (APT) with NMC on selected replicas.
 
-TPU-native rebuild of /root/reference/NPT/npt.py. Per swap round the
+Accelerator rebuild of /root/reference/NPT/npt.py. Per swap round the
 reference forks one OS process per replica (npt.py:616-640), runs plain
 Gibbs at the replica's beta (MCMC_task, npt.py:112-127) or an NMC cycle at
 `global_beta` — NOT the replica's beta; quirk preserved (npt.py:126) — then
@@ -57,7 +57,7 @@ class NPTConfig:
     use_hash_table: bool = False   # parity no-op (docs/DEVIATIONS.md)
     normalize: bool = True
     record_last_round_m: bool = True
-    # TPU execution knobs
+    # device execution knobs
     block_size: int = 128
     use_coloring: bool = False
     dtype: str = "float32"

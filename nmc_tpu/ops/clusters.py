@@ -143,6 +143,8 @@ def backbone_mask_device(
         cand = mag >= _thr(thr)
         if active is not None:
             cand = cand & active
+        # nonnegative sums tested against 0: exact at any matmul
+        # precision (TF32 and bf16 keep f32's exponent range)
         nbr = jnp.matmul(mask.astype(J_abs.dtype), J_abs) > 0
         mask = mask | (nbr & cand)
         thr -= threshold_step
@@ -205,8 +207,7 @@ def _label_fixpoint(propagate, labels0, diff, n, max_iters, jump=True):
     of graph shape (fixes the silent truncation of the old fixed-64-iter
     scheme). `jump=False` skips the jumping gather — iterations then grow
     to the component eccentricity, which pays off when propagate is much
-    cheaper than a data-dependent [n] gather (the TPU matmul path: the
-    jump gather measured 1.3 ms vs 0.05 ms/step of propagation)."""
+    cheaper than a data-dependent [n] gather (the matmul path)."""
     big = jnp.int32(n)
 
     def step(state):
@@ -288,13 +289,11 @@ def disagreement_labels_blocked(
 ) -> jax.Array:
     """Block-sparse-tile variant of disagreement_labels_sparse: min-label
     propagation over the same [nB, K] union column-tile layout the
-    whole-round kernel streams (parallel/ensemble_nmc._union_tiles).
+    ensembles build (parallel/ensemble_nmc._union_tiles).
 
     Each propagation step is one fused masked-min over the resident
-    tiles — no segment_min scatter, which is the TPU bottleneck of the
-    edge-list path at chimera2048 scale (results/icm_phase_breakdown.json
-    measured the scatter-based Houdayer at 1.3x the cost of a FULL
-    96-sweep round). Exact: identical fixed point to the sparse/dense
+    tiles — no segment_min scatter as in the edge-list path. Exact:
+    identical fixed point to the sparse/dense
     variants (component-min labels), so _houdayer_from_labels draws the
     same move for the same key.
 
@@ -342,11 +341,8 @@ class NeighborPlanes:
     """Host-precomputed one-hot operands for disagreement_labels_matmul.
 
     Encodes the (static) adjacency of one blocked instance as matmul
-    operands so min-label propagation runs entirely on the MXU — no
-    segment_min scatter, no data-dependent gather (both measured at
-    ~1.3-2.8 ms/step on TPU at chimera2048 scale vs ~0.05 ms for the
-    matmul step; see results/houdayer_variants.json and the real-state
-    follow-up in docs/BENCHMARKS.md).
+    operands so min-label propagation runs entirely as matmuls — no
+    segment_min scatter, no data-dependent gather.
 
       gather [nB, K, nB]     one-hot over block ids: gather @ labels2d
                              pulls each row-block's K neighbor column
@@ -359,15 +355,17 @@ class NeighborPlanes:
                              sentinel column (value `big`) for d beyond
                              the row's degree.
 
-    Exactness: the TPU MXU computes float32 matmuls as bfloat16 passes
-    at default precision, which would corrupt label values > 256 — so
-    the propagate step routes labels through an EXACT hi/lo byte split
-    (labels = hi*256 + lo, both in [0, 256], exact in bfloat16; each
-    one-hot row selects exactly one term, so the f32 accumulation is
-    exact, and the recombined value <= n_pad is exact in f32). Verified
-    bit-equal to the sparse path on real chimera2048 states on TPU
-    (scripts/profile_houdayer_variants.py follow-up). Supports
-    n_pad <= 65536.
+    Exactness: the matmuls run at default precision, where a GPU may
+    compute a float32 product in TF32 (11 significant bits: integers up
+    to 2048 exact) and the planes are bfloat16 (8 significant bits:
+    integers up to 256 exact). Label values reach n_pad, so the
+    propagate step routes labels through an EXACT hi/lo byte split
+    (labels = hi*256 + lo, both in [0, 256], exact in bfloat16 and in
+    TF32); each one-hot row selects exactly one term, so the f32
+    accumulation adds zeros to one exact value, and the recombined
+    value <= n_pad is exact in f32. chip_smoke.py checks the labels
+    bit-equal to the host components on the GPU at 4096 spins.
+    Supports n_pad <= 65536.
     """
 
     def __init__(self, gather, planes, n_pad, block_size):
@@ -432,12 +430,12 @@ def disagreement_labels_matmul(
 ) -> jax.Array:
     """Min-label propagation with every step expressed as two one-hot
     matmuls (gather of neighbor column blocks, then per-row neighbor
-    selection) plus a D-way min — the MXU-native variant of
+    selection) plus a D-way min — the matmul variant of
     disagreement_labels_sparse. Exact: identical fixed point (component-
     min labels), so _houdayer_from_labels draws the same move for the
     same key. Runs without pointer jumping — iterations are bounded by
-    the component eccentricity, but each is ~50x cheaper than a
-    segment_min/gather step on TPU (measured at chimera2048)."""
+    the component eccentricity, but each is far cheaper than a
+    segment_min/gather step."""
     n = planes.n_pad
     B = planes.block_size
     nB = n // B
@@ -455,8 +453,8 @@ def disagreement_labels_matmul(
 
     def propagate(labels):
         lab2 = labels.reshape(nB, B)
-        # exact hi/lo byte split: values in [0, 256], exact in bf16 on
-        # the MXU's default-precision f32 path (see class docstring)
+        # exact hi/lo byte split: values in [0, 256], exact in bf16 and
+        # TF32 at default precision (see NeighborPlanes docstring)
         hi = (lab2 // 256).astype(jnp.float32)
         lo = (lab2 % 256).astype(jnp.float32)
         ch = jnp.einsum("ikb,bc->ikc", G, hi)
@@ -481,7 +479,7 @@ def houdayer_move_matmul(planes, s1, s2, key, *,
                          num_iters: Optional[int] = None,
                          use_katzgraber: bool = True,
                          katzgraber_threshold: Optional[int] = None):
-    """Houdayer move with the MXU matmul label propagation — same move
+    """Houdayer move with the matmul label propagation — same move
     semantics (and, for the same key, the same draw) as
     houdayer_move_sparse. The fast path for the batched ICM engines on
     bounded-degree topologies (chimera/DCL); dense instances (wishart)

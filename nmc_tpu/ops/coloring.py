@@ -5,7 +5,7 @@ is unparallelizable as written. For sparse topologies (Chimera/Pegasus/EA
 lattices) the J-adjacency graph admits a small proper coloring; spins of one
 color have no mutual couplings, so updating a whole color class at once from
 cached local fields is EXACT heat-bath Gibbs — all the per-spin work becomes
-one [R, N] x [N, |class|] MXU matmul. The coloring is a one-time host-side
+one [R, N] x [N, |class|] matmul. The coloring is a one-time host-side
 (numpy) preprocessing step; core/problem.block_problem consumes the classes
 as `groups`, padding each to a lane-aligned block so no block mixes colors.
 """

@@ -18,8 +18,9 @@ import numpy as np
 
 from ..core.energy import local_fields
 from ..core.problem import (BlockedProblem, IsingProblem, block_problem,
-                            block_sparse_tiles)
-from .sweeps import SweepResult, anneal_schedule, run_sweeps
+                            block_sparse_tiles, tile_columns)
+from .sweeps import (SweepResult, anneal_schedule, choose_sweep_impl,
+                     sweep_fn)
 
 
 class EngineResult(NamedTuple):
@@ -43,10 +44,10 @@ class SweepEngine:
         block_order: str = "fixed",
         dtype=jnp.float32,
         precision: str = "highest",
-        backend: str = "auto",   # 'auto' | 'xla' | 'pallas'
-        sparse_phi: bool = False,  # block-sparse phi update (experimental:
-                                   # measured SLOWER than dense on v5e —
-                                   # docs/BENCHMARKS.md "known headroom")
+        backend: str = "auto",   # 'auto' | 'xla' | 'triton'
+                                 # (ops.sweeps.choose_sweep_impl)
+        sparse_phi: bool = False,  # XLA path: block-sparse phi update
+                                   # over the nonzero column tiles
     ):
         self.problem = problem
         self.dtype = dtype
@@ -62,26 +63,17 @@ class SweepEngine:
         )
         # Colored layouts make the all-at-once block update exact Gibbs.
         self.within_block = "jacobi" if self.blocked.colored else within_block
-        # Block-sparse phi update (opt-in): cuts MACs ~n_pad/(K*B) on
-        # sparse topologies but the small [R,B]@[B,B] tile matmuls measured
-        # SLOWER than one dense [R,B]@[B,n_pad] on v5e (MXU utilization +
-        # slice overhead dominate) — kept for study; see docs/BENCHMARKS.md.
+        # validates `backend` now: an explicit 'triton' the kernel cannot
+        # serve raises here rather than at the first run
+        self.impl = self._impl(record_m=False)
         self.sparse_tiles = None
         if sparse_phi:
             col_idx, J_tiles = block_sparse_tiles(self.blocked)
             self.sparse_tiles = (jnp.asarray(col_idx),
                                  jnp.asarray(J_tiles))
-        # Sparse-tile streaming Pallas kernel (TPU, colored, large N): DMA
-        # and multiply only the nonzero [B,B] column tiles of J — 2.6x the
-        # dense streaming path at chimera-5408 (docs/BENCHMARKS.md)
-        self._stream_tiles = None
-        if (self.blocked.colored and self.blocked.n_pad > 1536
-                and backend in ("auto", "pallas")):
-            col_idx, J_tiles = block_sparse_tiles(self.blocked)
-            if col_idx.shape[1] <= self.blocked.num_blocks // 2:
-                self._stream_tiles = (jnp.asarray(col_idx),
-                                      jnp.asarray(J_tiles))
         b = self.blocked
+        self.col_idx, self.counts = tile_columns(
+            b.J_rows.reshape(b.n_pad, b.n_pad), b.block_size)
         self.J_rows = jnp.asarray(b.J_rows)
         self.J_diag = jnp.asarray(b.J_diag)
         self.h = jnp.asarray(b.h)
@@ -124,22 +116,11 @@ class SweepEngine:
         return local_fields(self.J_full, self.h, m_blocked,
                             precision=self.precision)
 
-    def _streamed_fits(self, R, has_bs, has_mask, num_sweeps,
-                       budget=14 * 2 ** 20) -> bool:
-        """Estimate the streaming kernels' VMEM footprint (states + J
-        double buffer + per-sweep energies) against a ~14 MiB budget —
-        replaces the previous hard n_pad <= 12288 cap and extends Pallas
-        coverage to whatever (n_pad, R, masks) combination actually fits."""
-        r_tile = 128 if R % 128 == 0 else R
-        n_state = 3 + (1 if has_bs else 0) + (1 if has_mask else 0)
-        b = n_state * r_tile * self.n_pad * 4
-        if self._stream_tiles is not None:
-            col_idx, J_tiles = self._stream_tiles
-            b += 2 * int(np.prod(J_tiles.shape[1:])) * J_tiles.dtype.itemsize
-        else:
-            b += 2 * self.blocked.block_size * self.n_pad * 4
-        b += num_sweeps * r_tile * 4 + 2 * self.n_pad * 4
-        return b < budget
+    def _impl(self, record_m: bool) -> str:
+        return choose_sweep_impl(
+            self.backend, colored=self.blocked.colored,
+            block_size=self.blocked.block_size, dtype=self.dtype,
+            block_order=self.block_order, record_m=record_m)
 
     # ---- main entry ------------------------------------------------------
     def run(
@@ -153,9 +134,7 @@ class SweepEngine:
         sweeps_per_beta: int = 1,
         initial_beta: float = 0.0,
         beta_spin=None,          # [n] | [R, n] per-spin beta multiplier (heating)
-        beta_replica=None,       # [R] per-replica beta multiplier (PT); keeps
-                                 # the structure visible so large colored runs
-                                 # can route to the streaming Pallas kernel
+        beta_replica=None,       # [R] per-replica beta multiplier (PT)
         update_mask=None,        # [n] | [R, n] bool; False = frozen
         record_m: bool = False,
         blocked_input: bool = False,
@@ -188,7 +167,7 @@ class SweepEngine:
                 bs = self.to_blocked(jnp.broadcast_to(bs, (R, self.n)), fill=1.0)
 
         if update_mask is None:
-            mask = jnp.broadcast_to(self.active, (R, self.n_pad))
+            mask = self.active
         else:
             mask = jnp.asarray(update_mask, dtype=bool)
             if not blocked_input:
@@ -197,92 +176,8 @@ class SweepEngine:
 
         phi = self.fields(m0) if phi0 is None else phi0
 
-        # The Pallas kernel covers the colored (block-Jacobi-exact) layout
-        # with fixed block order and no state recording; it keeps J/m/phi
-        # VMEM-resident across all sweeps (ops/sweeps_pallas.py). Everything
-        # else runs on the XLA engine.
-        pallas_ok = (
-            self.backend in ("pallas", "auto")
-            and self.blocked.colored
-            and self.within_block == "jacobi"
-            and self.block_order == "fixed"
-            and not record_m
-            and self.dtype == jnp.float32
-            and jax.devices()[0].platform == "tpu"
-        )
-        # J must fit VMEM alongside the state tiles (~16 MB budget) for the
-        # resident kernel; beyond that the HBM-streaming kernels cover the
-        # full phase parametrization (per-replica beta, per-chain masks,
-        # per-spin heating) up to whatever n_pad the VMEM estimate admits
-        has_bs = beta_spin is not None
-        has_mask = update_mask is not None
-        use_pallas = pallas_ok and self.n_pad <= 1536
-        use_streamed = (
-            pallas_ok and self.n_pad > 1536
-            and self._streamed_fits(R, has_bs, has_mask, num_sweeps)
-        )
-        if self.backend == "pallas" and not (use_pallas or use_streamed):
-            raise ValueError(
-                "pallas backend requires a colored float32 layout on TPU "
-                "with fixed block order and record_m=False")
-        if use_streamed:
-            from .sweeps_pallas import (pallas_colored_sweeps_sparse,
-                                        pallas_colored_sweeps_streamed)
-
-            seed = jax.random.randint(key, (2,), 0,
-                                      jnp.iinfo(jnp.int32).max, jnp.int32)
-            beta_row = (jnp.asarray(beta_replica, jnp.float32).reshape(R)
-                        if beta_replica is not None
-                        else jnp.ones((R,), jnp.float32))
-            bs_arg = (jnp.broadcast_to(bs, (R, self.n_pad))
-                      if has_bs else None)
-            mask_arg = (mask.astype(jnp.float32) if has_mask
-                        else self.active.reshape(1, self.n_pad))
-            if self._stream_tiles is not None:
-                col_idx, J_tiles = self._stream_tiles
-                pres = pallas_colored_sweeps_sparse(
-                    col_idx, J_tiles, self.h, m0, phi, seed, beta_sweep,
-                    beta_row, mask_arg, bs_arg, num_sweeps=num_sweeps,
-                    block_size=self.blocked.block_size,
-                    precision=self.precision,
-                )
-            else:
-                pres = pallas_colored_sweeps_streamed(
-                    self.J_rows, self.h, m0, phi, seed, beta_sweep, beta_row,
-                    mask_arg, bs_arg, num_sweeps=num_sweeps,
-                    block_size=self.blocked.block_size,
-                    precision=self.precision,
-                )
-            res = SweepResult(m=pres.m, phi=pres.phi, m_best=pres.m_best,
-                              e_best=pres.e_best, energies=pres.energies,
-                              M=None)
-            if blocked_output:
-                return res
-            return EngineResult(
-                m=self.from_blocked(res.m),
-                m_best=self.from_blocked(res.m_best),
-                e_best=res.e_best, energies=res.energies, M=None)
-        if use_pallas:
-            from .sweeps_pallas import pallas_colored_sweeps
-
-            seed = jnp.int32(
-                jax.random.randint(key, (), 0, jnp.iinfo(jnp.int32).max))
-            pres = pallas_colored_sweeps(
-                self.J_full, self.h, m0, phi, seed, beta_sweep, bs, mask,
-                num_sweeps=num_sweeps, block_size=self.blocked.block_size,
-                precision=self.precision,
-            )
-            res = SweepResult(m=pres.m, phi=pres.phi, m_best=pres.m_best,
-                              e_best=pres.e_best, energies=pres.energies,
-                              M=None)
-            if blocked_output:
-                return res
-            return EngineResult(
-                m=self.from_blocked(res.m),
-                m_best=self.from_blocked(res.m_best),
-                e_best=res.e_best, energies=res.energies, M=None)
-
-        res = run_sweeps(
+        impl = self.impl if not record_m else self._impl(record_m=True)
+        res = sweep_fn(impl, self.col_idx, self.counts)(
             self.J_rows, self.J_diag, self.h, m0, phi, key,
             beta_sweep, bs, mask, self.sparse_tiles,
             num_sweeps=num_sweeps,

@@ -1,6 +1,6 @@
 """Loopy Belief Propagation with convexification (backbone inference).
 
-TPU-native rewrite of the reference's LBP stack:
+Jittable rewrite of the reference's LBP stack:
   * LoopyBeliefPropagation (/root/reference/NMC/nmc.py:168-228): dense tanh
     message passing. The reference's row loop computing
     h_msgs[i,:] = h[i] + sum_k u[k,i] - u[:,i] is a rank-1 broadcast; here

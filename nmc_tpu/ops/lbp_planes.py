@@ -1,11 +1,10 @@
 """Scatter-free convexified LBP over a slotted edge layout.
 
 The O(nnz) edge-message LBP (ops/lbp_jit.convexified_marginal_sparse)
-spends its TPU time in three scatter/gather ops per iteration
-(segment_sum, S[src], u[rev]) — the same per-op cost class that made the
-Houdayer label propagation cost more than a full sweep round at
-chimera2048 scale (results/icm_phase_breakdown_blocked.json) before the
-matmul rewrite (ops/clusters.disagreement_labels_matmul). This module
+spends its time in three scatter/gather ops per iteration (segment_sum,
+S[src], u[rev]) — the same per-op cost class the Houdayer label
+propagation avoided with its matmul rewrite
+(ops/clusters.disagreement_labels_matmul). This module
 applies the same cure to LBP:
 
   * edges live in a SLOTTED layout u[v, d] = the d-th incoming message
@@ -18,13 +17,11 @@ applies the same cure to LBP:
     ops/clusters) — no data-dependent gather.
 
 Exactness: unlike the integer labels of the Houdayer path (which use an
-exact hi/lo byte split through the MXU's bf16 default-precision passes),
+exact hi/lo byte split through default-precision bf16/TF32 matmuls),
 LBP messages are arbitrary float32 — so every one-hot contraction here
-runs at jax.lax.Precision.HIGHEST, whose 3-pass bf16 decomposition
-reconstructs one-term selections EXACTLY (each product has a 0/1
-multiplier; the f32 operand splits into three <=8-bit-mantissa bf16
-components whose staggered-exponent sum re-assembles the full 24-bit
-mantissa). The only deviation from the edge-list path is float summation
+runs at jax.lax.Precision.HIGHEST: full float32 (never TF32), so each
+one-term selection (a 0/1 multiplier times one f32 operand, plus exact
+zeros) is EXACT. The only deviation from the edge-list path is float summation
 ORDER in the per-node reduction — tests compare with tolerance, and the
 backend is opt-in until profiled on hardware.
 

@@ -22,14 +22,14 @@ This module packages that as:
     (+ optional 2-flip polish), numpy, exact f64;
   * device search: `spectral_candidates_device(J, h, ...)` — the same
     rounding/descent as a batched jittable program (candidates × spins
-    matmuls on the MXU, `lax.while_loop` until every candidate is 1-flip
-    stable) for TPU-resident preconditioning at larger N;
+    matmuls, `lax.while_loop` until every candidate is 1-flip stable) for
+    device-resident preconditioning at larger N;
   * MCMC seeding: campaign arms accept `init_state(key, m0=...)` where m0
     comes from `spectral_candidates`, so the coldest chains start inside
     the planted basin instead of the metastable sea.
 
 This is an addition over the reference (which has no spectral component);
-it is the natural TPU-first answer to the wishart families the reference
+it is the natural accelerator answer to the wishart families the reference
 itself ships as its hard examples.
 """
 from __future__ import annotations
@@ -255,8 +255,11 @@ def spectral_search(prob, *, top_k: Optional[int] = None,
     return SpectralResult(states[0], float(energies[0]), states, energies)
 
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
 # ----------------------------------------------------------------------
-# Device (jax) implementation — batched rounding + descent on the MXU
+# Device (jax) implementation — batched rounding + descent as matmuls
 # ----------------------------------------------------------------------
 
 def batched_descent_device(J: jax.Array, S: jax.Array,
@@ -289,14 +292,15 @@ def batched_descent_device(J: jax.Array, S: jax.Array,
         onehot = jax.nn.one_hot(i, n, dtype=dt)              # [C, n]
         S_new = S * (1.0 - (1.0 - sgn[:, None]) * onehot)
         # field update: F += 2 * s_new_i * J[:, i]  (rows gathered by
-        # one-hot matmul — MXU-friendly, no dynamic gather)
+        # one-hot matmul, no dynamic gather; HIGHEST so a TF32 default
+        # cannot round J and steer the descent)
         s_new_i = jnp.sum(S_new * onehot, axis=1)            # [C]
         F_new = F + 2.0 * (s_new_i * flip.astype(dt))[:, None] * (
-            onehot @ Jd)
+            jnp.matmul(onehot, Jd, precision=_HIGHEST))
         done_new = jnp.logical_or(done, jnp.logical_not(flip))
         return S_new, F_new, it + 1, done_new
 
-    F0 = S @ Jd + hv[None, :]
+    F0 = jnp.matmul(S, Jd, precision=_HIGHEST) + hv[None, :]
     S_out, _, _, _ = jax.lax.while_loop(
         cond, body, (S, F0, jnp.int32(0), jnp.zeros((C,), bool)))
     return S_out
@@ -309,7 +313,9 @@ def difference_map_rounding_device(V: jax.Array, *, num_starts: int = 512,
                                    dtype=jnp.float32) -> jax.Array:
     """Device analogue of `difference_map_rounding`: a `lax.scan` of
     snapshot blocks, each an inner scan of `snapshot_every` difference-map
-    steps (two [C, n] x [n, d] matmuls per step — MXU work).  Returns the
+    steps (two [C, n] x [n, d] matmuls per step, at default precision:
+    a TF32 rounding only perturbs this heuristic pool, which
+    `batched_descent_device` then descends exactly).  Returns the
     pooled +-1 snapshots [blocks * C, n] (not uniqued — descend them all
     with `batched_descent_device`; duplicates are harmless there)."""
     V = jnp.asarray(V, dtype)
@@ -376,6 +382,7 @@ def spectral_candidates_device(J: jax.Array,
     S = jnp.concatenate(cands, axis=0)
     S = batched_descent_device(J, S, h)
     hv = jnp.zeros((n,), dtype) if h is None else h.astype(dtype)
-    E = -(0.5 * jnp.sum(S * (S @ J), axis=1) + S @ hv)
+    E = -(0.5 * jnp.sum(S * jnp.matmul(S, J, precision=_HIGHEST), axis=1)
+          + jnp.matmul(S, hv, precision=_HIGHEST))
     order = jnp.argsort(E)
     return S[order], E[order]

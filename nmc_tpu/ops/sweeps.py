@@ -1,12 +1,12 @@
-"""Blocked heat-bath Gibbs sweep engine (jittable, TPU-first).
+"""Blocked heat-bath Gibbs sweep engine (jittable, XLA).
 
 The reference's MCMC kernel (/root/reference/NMC/nmc.py:28-91 and three
 duplicates) performs a strictly sequential random-scan Gibbs sweep and
 recomputes the FULL local-field vector J@m + h per spin update — O(N*nnz)
-work per sweep. This engine replaces it with the TPU-native scheme:
+work per sweep. This engine replaces it with a blocked scheme:
 
   * Local fields phi = J@m + h are cached and updated incrementally.
-  * Spins are processed in blocks of `block_size` (lane dimension = 128).
+  * Spins are processed in blocks of `block_size` (default 128).
     Within a block the update is either
       - 'sequential': exact heat-bath Gibbs via the classic delayed-update
         trick — a running intra-block correction is maintained with rank-1
@@ -14,7 +14,7 @@ work per sweep. This engine replaces it with the TPU-native scheme:
       - 'jacobi': all block spins at once, which is EXACT Gibbs whenever the
         block is an independent set (graph-colored blocks, ops/coloring.py)
         and an approximation otherwise.
-    After each block, phi += dm @ J[block, :] — one MXU matmul per block,
+    After each block, phi += dm @ J[block, :] — one matmul per block,
     R*N^2 MACs per full sweep in total (the optimal dense cost).
   * Replicas / chains ride the leading batch axis R; the same compiled
     kernel serves NMC phases, NPT replicas, APT chains and ICM sub-replicas.
@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax import lax
 
 from ..core.energy import energy_from_fields
@@ -204,3 +205,61 @@ def anneal_schedule(num_sweeps: int, beta: float, initial_beta: float,
     jj = jnp.arange(num_sweeps)
     idx = jnp.minimum(jj // sweeps_per_beta + 1, num_betas - 1)
     return beta_vals[idx]
+
+
+def choose_sweep_impl(backend: str = "auto", *, colored: bool,
+                      block_size: int, dtype, block_order: str = "fixed",
+                      record_m: bool = False,
+                      platform: Optional[str] = None) -> str:
+    """The one choice of sweep implementation: 'triton' (the Pallas kernel
+    of ops/sweeps_triton.py) or 'xla' (run_sweeps).
+
+    `backend` is 'auto' (the kernel wherever it covers the request), 'xla'
+    or 'triton' (raises when the kernel cannot run the request here)."""
+    if backend not in ("auto", "xla", "triton"):
+        raise ValueError(f"backend must be auto|xla|triton, got {backend!r}")
+    if backend == "xla":
+        return "xla"
+    platform = platform or jax.default_backend()
+    fails = []
+    if platform != "gpu":
+        fails.append(f"a GPU (platform is {platform!r})")
+    if not colored:
+        fails.append("a colored layout (use_coloring=True)")
+    if block_order != "fixed":
+        fails.append("block_order='fixed'")
+    if record_m:
+        fails.append("record_m=False")
+    if jnp.dtype(dtype) != jnp.float32:
+        fails.append(f"float32 (got {jnp.dtype(dtype).name})")
+    if block_size < 16 or block_size & (block_size - 1):
+        fails.append(f"a power-of-two block_size >= 16 (got {block_size})")
+    if not fails:
+        return "triton"
+    if backend == "triton":
+        raise ValueError("the triton sweep kernel needs " + "; ".join(fails))
+    return "xla"
+
+
+def layout_sweeps(blocked, dtype):
+    """The run_sweeps-compatible callable for instances sharing one blocked
+    layout (a family: the kernel walks the union of their couplings)."""
+    b0 = blocked[0]
+    impl = choose_sweep_impl(colored=b0.colored, block_size=b0.block_size,
+                             dtype=dtype)
+    if impl == "xla":
+        return run_sweeps
+    from ..core.problem import tile_columns
+    pattern = sum(np.abs(b.J_rows.reshape(b0.n_pad, b0.n_pad))
+                  for b in blocked)
+    return sweep_fn(impl, *tile_columns(pattern, b0.block_size))
+
+
+def sweep_fn(impl: str, col_idx=None, counts=None):
+    """A run_sweeps-compatible callable for `impl` (choose_sweep_impl).
+    The kernel needs the layout's nonzero column tiles
+    (core.problem.tile_columns)."""
+    if impl == "xla":
+        return run_sweeps
+    from .sweeps_triton import triton_sweeps
+    return functools.partial(triton_sweeps, col_idx=col_idx, counts=counts)

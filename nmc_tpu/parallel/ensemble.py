@@ -2,9 +2,9 @@
 
 The reference has no in-code ensemble mode — users launch one process per
 instance file (SURVEY.md section 2.2). Here an ensemble of same-size Ising
-instances is a leading `instance` axis sharded over the mesh (DCN/ICI),
-with replicas vmapped inside each shard: BASELINE.json config 5
-("100 SK-1000 instances x 64 replicas sharded over a v5e pod").
+instances is a leading `instance` axis sharded over the mesh, with
+replicas vmapped inside each shard: BASELINE.json config 5
+("100 SK-1000 instances x 64 replicas sharded over the devices").
 
 Each instance runs an independent parallel-tempering chain set; swaps are
 beta-label permutations (parallel/swaps.py) computed per instance inside
@@ -23,7 +23,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.problem import IsingProblem, block_problem
-from ..ops.sweeps import run_sweeps
+from ..ops.sweeps import layout_sweeps
 from .swaps import metropolis_label_swap
 
 
@@ -90,6 +90,9 @@ class EnsemblePT:
         self.h = jax.device_put(
             jnp.stack([jnp.asarray(b.h) for b in blocked]), inst_sharding)
         self.active = jnp.asarray(blocked[0].active)
+        # the sweep stage goes through the one implementation choice
+        # (ops.sweeps.choose_sweep_impl) over the family's union tiles
+        self._sweeps = layout_sweeps(blocked, np_dtype)
         self.beta_list = jnp.asarray(self.beta_np, dtype)
 
         self._round_jit = jax.jit(self._build_round())
@@ -134,7 +137,7 @@ class EnsemblePT:
                              precision=cfg.precision) + h
             act = jnp.broadcast_to(self.active, (R, n_pad))
             k_sweep, k_swap = jax.random.split(key)
-            res = run_sweeps(
+            res = self._sweeps(
                 J_rows, J_diag, h, m, phi, k_sweep,
                 jnp.ones((cfg.sweeps_per_round,), dtype),
                 jnp.broadcast_to(beta_slot, (R, n_pad)), act,

@@ -1,4 +1,4 @@
-"""Mesh-sharded NPT: replica-parallel tempering across TPU chips.
+"""Mesh-sharded NPT: replica-parallel tempering across devices.
 
 The reference scales replicas with one OS process per replica per round
 (/root/reference/NPT/npt.py:616-640), shipping the full sweep history
@@ -8,7 +8,7 @@ local fields stay resident in its HBM forever), the whole swap round —
 sweeps, LBP backbone extraction, NMC phases, replica exchange — is ONE
 jitted shard_map program, and the only cross-chip traffic is an all_gather
 of R scalar energies plus the replicated O(R) label permutation from
-parallel/swaps.py. States never cross the ICI.
+parallel/swaps.py. States never cross the interconnect.
 
 Faithfulness notes (vs models/npt.py, the exact single-host path):
   * NMC replicas run at global_beta (quirk preserved, npt.py:126).
@@ -41,7 +41,7 @@ from ..core.problem import IsingProblem, block_problem
 from ..ops.lbp import lambda_ladder
 from ..ops.lbp_jit import (convexified_marginal_dense,
                            convexified_marginal_sparse)
-from ..ops.sweeps import run_sweeps
+from ..ops.sweeps import layout_sweeps
 from .swaps import metropolis_label_swap
 
 
@@ -68,9 +68,7 @@ class ShardedNPTConfig:
     lbp_mode: str = "auto"   # 'dense' | 'sparse' | 'planes' (scatter-free
                              # slotted-edge LBP via one-hot matmuls,
                              # ops/lbp_planes; raises past the degree cap)
-                             # | 'auto': planes when the degree cap holds
-                             # (r4 hardware A/B: 5.3x the full NMC round,
-                             # results/nmc_phase_breakdown_planes.json),
+                             # | 'auto': planes when the degree cap holds,
                              # else sparse above 1024 spins (dense [N,N]
                              # messages blow memory), else dense
     block_size: int = 128
@@ -78,10 +76,6 @@ class ShardedNPTConfig:
     use_coloring: bool = False   # graph-colored blocks -> exact Jacobi updates
     precision: str = "highest"
     dtype: str = "float32"
-    round_kernel: str = "auto"   # EnsembleNMC whole-round Pallas kernel:
-                                 # 'auto' (on accelerators when the layout
-                                 # fits VMEM), 'on' (interpret mode on CPU),
-                                 # 'off' (XLA scan path)
 
 
 class ShardedPTState(NamedTuple):
@@ -167,9 +161,7 @@ class ShardedNPT:
         self._w_slot = None
         if self.any_nmc and cfg.lbp_mode in ("planes", "auto"):
             # scatter-free slotted-edge LBP (ops/lbp_planes; see
-            # EnsembleNMC for the rationale). DEFAULT under 'auto' since
-            # the round-4 hardware A/B (5.3x full round / 37x LBP stage,
-            # results/nmc_phase_breakdown_planes.json); explicit 'planes'
+            # EnsembleNMC). DEFAULT under 'auto'; explicit 'planes'
             # raises past the degree cap, 'auto' falls back to the
             # edge-list path.
             from ..core.problem import block_sparse_tiles
@@ -191,45 +183,9 @@ class ShardedNPT:
             g = EdgeGraph.from_dense(self._dense_J_np())
             self.edge_graph = g
 
-        # whole-round Pallas kernel per replica shard (same kernel as
-        # EnsembleNMC, instance grid of 1): all NMC phases of a round in
-        # one pallas_call instead of the per-phase XLA op stream. Needs
-        # the colored (Jacobi-exact) layout, f32, sublane-aligned local
-        # replica count, and a VMEM-resident J.
-        import os as _os
-        _cap = int(_os.environ.get("NMC_TPU_ROUND_VMEM_CAP", 12 * 2 ** 20))
-        from ..ops.round_pallas import round_kernel_vmem_bytes
-        _backend = jax.default_backend()
-        self._round_interpret = _backend == "cpu"
-        if cfg.round_kernel not in ("auto", "on", "off"):
-            raise ValueError(f"round_kernel must be auto|on|off, "
-                             f"got {cfg.round_kernel!r}")
-        _gate_fails = []
-        if not self.blocked.colored:
-            _gate_fails.append("use_coloring=True (colored Jacobi layout)")
-        if self.R_local % 8 != 0:
-            _gate_fails.append(
-                f"R_local={self.R_local} must be a multiple of 8")
-        if dtype != jnp.float32:
-            _gate_fails.append(f"dtype must be float32, got {dtype}")
-        if (round_kernel_vmem_bytes(self.n_pad, self.R_local) > _cap):
-            _gate_fails.append(
-                f"VMEM estimate "
-                f"{round_kernel_vmem_bytes(self.n_pad, self.R_local)} "
-                f"exceeds cap {_cap} (NMC_TPU_ROUND_VMEM_CAP)")
-        if cfg.round_kernel == "on" and _gate_fails:
-            # an explicit kernel request must not silently fall back
-            # (mirrors ops/engine.py SweepEngine backend='pallas')
-            raise ValueError(
-                "round_kernel='on' requested but kernel gates failed: "
-                + "; ".join(_gate_fails))
-        # TPU-validated (scripts/validate_sharded_round_tpu.py: contract +
-        # statistical parity vs the XLA round + 1.4x throughput), so
-        # 'auto' engages it on accelerator backends like EnsembleNMC
-        self._use_round_kernel = (
-            not _gate_fails
-            and (cfg.round_kernel == "on"
-                 or (cfg.round_kernel == "auto" and _backend != "cpu")))
+        # the sweep stage goes through the one implementation choice
+        # (ops.sweeps.choose_sweep_impl)
+        self._sweeps = layout_sweeps([b], dtype)
 
         self._round_jit = jax.jit(self._build_round())
         self._scan_jit = {}
@@ -309,7 +265,7 @@ class ShardedNPT:
 
         def phase(m, key, beta_spin, mask):
             phi = jnp.matmul(m, self.J_full, precision=cfg.precision) + self.h
-            return run_sweeps(
+            return self._sweeps(
                 self.J_rows, self.J_diag, self.h, m, phi, key,
                 jnp.ones((cfg.sweeps_per_phase,), dtype), beta_spin, mask,
                 num_sweeps=cfg.sweeps_per_phase,
@@ -366,41 +322,6 @@ class ShardedNPT:
 
             base_row = jnp.where(do_nmc, jnp.asarray(cfg.global_beta, dtype),
                                  beta_local.astype(dtype))[:, None]
-
-            if self._use_round_kernel:
-                from ..ops.round_pallas import pallas_ensemble_round
-                kd = (jax.random.key_data(k_dev)
-                      if jnp.issubdtype(k_dev.dtype, jax.dtypes.prng_key)
-                      else k_dev)
-                seed = lax.bitcast_convert_type(
-                    kd.reshape(-1)[:2].astype(jnp.uint32), jnp.int32)
-                res = pallas_ensemble_round(
-                    self.J_full[None], self.h[None], self.active,
-                    m_local[None], cl[None], do_nmc[None],
-                    base_row[:, 0][None], seed,
-                    num_cycles=cfg.num_cycles,
-                    sweeps_per_phase=cfg.sweeps_per_phase,
-                    full_update_frequency=cfg.full_update_frequency,
-                    temp_x_inv=1.0 / cfg.temp_x,
-                    block_size=self.blocked.block_size,
-                    interpret=self._round_interpret)
-                m_local = res.m[0]
-                improved = res.e_best[0] < eb_local
-                eb_local = jnp.where(improved, res.e_best[0], eb_local)
-                mb_local = jnp.where(improved[:, None], res.m_best[0],
-                                     mb_local)
-                e_carried = res.e_carried[0]
-                e_all = lax.all_gather(e_carried, axis, tiled=True)  # [R]
-                swap = metropolis_label_swap(
-                    k_swap, beta_to_slot,
-                    self.beta_list.astype(jnp.float32),
-                    e_all.astype(jnp.float32),
-                    num_pairs=cfg.num_swapping_pairs)
-                metrics = RoundMetrics(slot_energies=e_all,
-                                       accepted=swap.accepted,
-                                       pairs=swap.pairs)
-                return (m_local, swap.beta_to_slot, swap.slot_to_beta,
-                        metrics, mb_local, eb_local, cl, do_nmc)
 
             def track_best(res):
                 nonlocal mb_local, eb_local

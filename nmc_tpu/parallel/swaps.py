@@ -3,8 +3,9 @@
 The reference performs swaps on the driver host: sequential random selection
 of non-overlapping adjacent pairs (/root/reference/NPT/npt.py:514-533), then
 Metropolis accepts that COPY full spin states between replica slots
-(npt.py:677-678). On TPU both are wrong-shaped: state copies are O(N)
-HBM/ICI traffic and host round-trips break the jit step.
+(npt.py:677-678). On an accelerator both are wrong-shaped: state copies
+are O(N) device-memory and interconnect traffic, and host round-trips
+break the jit step.
 
 Here replicas never move. A permutation pair (beta_to_slot, slot_to_beta)
 maps temperature indices <-> chain slots; a swap exchanges the two LABELS.

@@ -4,7 +4,7 @@ The induced-tree large-neighborhood descent (`tree_moves.tree_refine` —
 Selby-style exact conditional optimization over maximal induced cell
 trees, reference topology: the chimera/DCL grids under
 /root/reference/NMC/examples/) converts near-miss states produced by
-the beam tier (`beam_chimera_tpu`) or a campaign arm into exact
+the beam tier (`beam_chimera_device`) or a campaign arm into exact
 ground-state hits. This module packages it behind three surfaces:
 
 * `tree_refine_state`  — one instance, one state (used by
@@ -126,7 +126,7 @@ def tree_refine_state(prob, s0, *, target_raw: Optional[float] = None,
     the same grid, so hit determination has no float fuzz.
     """
     from .beam_chimera import pad_to_chimera_grid
-    from .beam_chimera_tpu import quantize_problem
+    from .beam_chimera_device import quantize_problem
     from .tree_moves import chimera_layout, tree_refine
 
     solve_prob, rows, cols, n_orig = pad_to_chimera_grid(prob)
@@ -245,7 +245,7 @@ def refine_family(family: str, *, only: Optional[Iterable[str]] = None,
             covered = set().union(*tiers.values()) if tiers else set()
 
     from .beam_chimera import pad_to_chimera_grid
-    from .beam_chimera_tpu import quantize_problem
+    from .beam_chimera_device import quantize_problem
 
     only = set(only) if only is not None else None
     bdir = f"results/beam_states/{family}"

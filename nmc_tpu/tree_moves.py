@@ -11,7 +11,7 @@ everything outside a contiguous *column band*, so a residual droplet
 that snakes across rows and columns survives it in both orientations —
 the round-4 window-10 pass found ZERO improving moves on every
 1-2-quantum chimera2048 beam miss
-(results/beam_tpu_chimera2048_brw10.jsonl). An induced CELL TREE has no
+(results/beam_device_chimera2048_brw10.jsonl). An induced CELL TREE has no
 such shape constraint: comb-shaped trees (spine row + alternating-column
 teeth, 8 symmetry variants) plus randomized maximal induced trees cover
 droplets of any geometry with positive probability per round, and every

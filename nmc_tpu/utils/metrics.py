@@ -94,7 +94,7 @@ def timed(metrics: Optional[MetricsLogger], kind: str, **fields) -> Iterator[dic
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
-    """Capture a jax.profiler device trace around a section (TPU/XLA)."""
+    """Capture a jax.profiler device trace around a section."""
     import jax
 
     jax.profiler.start_trace(log_dir)

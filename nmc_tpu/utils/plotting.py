@@ -6,7 +6,7 @@ APT_ICM_energy..png (/root/reference/NPT/apt_ICM.py:307-322 — double dot
 kept for artifact-name parity), beta_sigma.png
 (/root/reference/NPT/apt_preprocessor.py:206-231).
 
-matplotlib is imported lazily with the Agg backend so headless TPU workers
+matplotlib is imported lazily with the Agg backend so headless workers
 never touch a display.
 """
 

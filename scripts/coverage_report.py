@@ -67,7 +67,7 @@ def scan_family(fam):
                 add("exact", r["name"])
 
     # deterministic beam tier
-    for p in glob.glob(f"results/beam_tpu_{fam}_b*.jsonl"):
+    for p in glob.glob(f"results/beam_device_{fam}_b*.jsonl"):
         for r in _iter_jsonl(p):
             if r.get("hit"):
                 add("beam", r["name"])

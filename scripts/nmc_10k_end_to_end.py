@@ -1,7 +1,6 @@
-"""Chimera-10k NMC end-to-end on one TPU chip (VERDICT round-1 item 2's
-'done' criterion): npt_run with NMC on the coldest replicas at
+"""Chimera-10k NMC end-to-end on one device: npt_run with NMC on the coldest replicas at
 N=10368 (chimera C(36,36,4)) — sparse edge-message LBP for backbone
-extraction, masked/heated streaming Pallas sweeps, replica exchange.
+extraction, masked/heated colored sweeps, replica exchange.
 
 Usage: python scripts/nmc_10k_end_to_end.py [rounds]
 """

@@ -10,7 +10,7 @@ rem=$(( ${DEADLINE:-9999999999} - $(date +%s) ))
 if [ "$rem" -lt 600 ]; then echo "DEADLINE: skip hybrid 1152"; exit 0; fi
 t=5400; [ "$rem" -lt "$t" ] && t=$rem
 
-timeout "$t" env NMC_TPU_ROUND_VMEM_CAP=6000000 \
+timeout "$t" \
   python -m nmc_tpu campaign --family chimera1152 --instances 20 \
   --replicas 32 --beta-max 32 --chunk-rounds 25 \
   --arm hybrid --subreplicas 2 --nmc-cold 6 --temp-x 20 --trace \

@@ -30,7 +30,7 @@ def main():
     covered = set().union(*tiers.values()) if tiers else set()
 
     res = {}
-    for line in open(f"results/beam_tpu_{args.family}_b{args.beam}.jsonl"):
+    for line in open(f"results/beam_device_{args.family}_b{args.beam}.jsonl"):
         r = json.loads(line)
         if "e_int" in r and r.get("target_int") is not None:
             res[r["name"]] = r["e_int"] - r["target_int"]

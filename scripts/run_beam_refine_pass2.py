@@ -8,19 +8,19 @@ window survive pass 1's window-8 strips in both orientations), extra
 stride offsets, and more passes. Pure refinement — no re-beam of the
 full instance — so a converted miss is a deterministic ground-state
 re-derivation (matches the shipped truth in exact integer arithmetic,
-same criterion as scripts/run_beam_chimera_tpu.py).
+same criterion as scripts/run_beam_chimera_device.py).
 
-Output rows go to results/beam_tpu_<family>_brw<window>.jsonl — the
-`beam_tpu_<fam>_b*` pattern scripts/coverage_report.py already scans as
+Output rows go to results/beam_device_<family>_brw<window>.jsonl — the
+`beam_device_<fam>_b*` pattern scripts/coverage_report.py already scans as
 the deterministic beam tier.
 
-Host-only by default (numpy strip DP; safe to run while the TPU chain
-owns the chip); --tpu switches the strip sub-solver to the jitted
-device beam.
+Host-only by default (numpy strip DP; safe to run while a device run
+owns the accelerator); --device switches the strip sub-solver to the
+jitted device beam.
 
 Usage:
   python scripts/run_beam_refine_pass2.py --family chimera2048
-      [--window 10] [--refine-beam 16] [--max-passes 40] [--tpu]
+      [--window 10] [--refine-beam 16] [--max-passes 40] [--device]
       [--skip-covered] [--only a.txt,b.txt] [--deadline E]
 """
 import argparse
@@ -46,7 +46,7 @@ def main(argv=None):
                          "than pass 1's window//2)")
     ap.add_argument("--refine-beam", type=int, default=16)
     ap.add_argument("--max-passes", type=int, default=40)
-    ap.add_argument("--tpu", action="store_true",
+    ap.add_argument("--device", action="store_true",
                     help="use the jitted device beam as strip sub-solver")
     ap.add_argument("--skip-covered", action="store_true")
     ap.add_argument("--only", default=None)
@@ -58,22 +58,22 @@ def main(argv=None):
     import numpy as np
 
     from nmc_tpu.beam_chimera import pad_to_chimera_grid, refine_strips
-    from nmc_tpu.beam_chimera_tpu import quantize_problem
+    from nmc_tpu.beam_chimera_device import quantize_problem
     from nmc_tpu.evaluation import (chimera_folder_instances,
                                     dcl_folder_instances)
     from nmc_tpu.io.loaders import read_otn2d_groundstates
 
     sub_solver = None
-    if args.tpu:
-        from nmc_tpu.beam_chimera_tpu import solve_beam_chimera_tpu
+    if args.device:
+        from nmc_tpu.beam_chimera_device import solve_beam_chimera_device
         from nmc_tpu.utils.compcache import enable_compilation_cache
         enable_compilation_cache()
-        sub_solver = (lambda sub, R, w: solve_beam_chimera_tpu(
+        sub_solver = (lambda sub, R, w: solve_beam_chimera_device(
             sub, rows=R, cols=w, beam=1 << args.refine_beam)[:2])
 
-    pass1 = f"results/beam_tpu_{args.family}_b{args.beam}.jsonl"
+    pass1 = f"results/beam_device_{args.family}_b{args.beam}.jsonl"
     sdir = f"results/beam_states/{args.family}"
-    out = args.out or (f"results/beam_tpu_{args.family}"
+    out = args.out or (f"results/beam_device_{args.family}"
                        f"_brw{args.window}.jsonl")
     if not os.path.exists(pass1):
         print(f"no pass-1 results at {pass1}; nothing to refine")

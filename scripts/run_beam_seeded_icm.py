@@ -1,6 +1,6 @@
 """Beam-seeded ICM on a family's beam-solver misses.
 
-Reads results/beam_tpu_<family>_b<beam>.jsonl, collects the instances
+Reads results/beam_device_<family>_b<beam>.jsonl, collects the instances
 the deterministic beam missed (that have saved states), and runs the
 batched EnsembleICM campaign arm with those states seeding the coldest
 chains (--init file): MCMC starts inside the beam's basin — typically
@@ -11,7 +11,7 @@ instance instead of per family.
 
 Usage:
   python scripts/run_beam_seeded_icm.py --family chimera1152
-      [--beam 16] [--sweeps 5000000] [--deadline E] [--vmem-cap N]
+      [--beam 16] [--sweeps 5000000] [--deadline E]
 """
 import argparse
 import json
@@ -44,7 +44,7 @@ def main(argv=None):
                          "(rescans all result artifacts)")
     args = ap.parse_args(argv)
 
-    beam_out = f"results/beam_tpu_{args.family}_b{args.beam}.jsonl"
+    beam_out = f"results/beam_device_{args.family}_b{args.beam}.jsonl"
     sdir = f"results/beam_states/{args.family}"
     if not os.path.exists(beam_out):
         print(f"no beam results at {beam_out}; nothing to seed")

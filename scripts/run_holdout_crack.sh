@@ -6,7 +6,7 @@
 #          x 6000 iters, 8 seeds) — the stage that cracked the other
 #          float/degenerate misses at 2048x3000.
 # Stage B: spectral-seeded deep ICM (2M sweeps), 4 seeds.
-# CPU-only (TPU outage safe); stops per folder once every instance hits.
+# CPU-only (needs no accelerator); stops per folder once every instance hits.
 set -u
 cd "$(dirname "$0")/.."
 OUT=results/campaign

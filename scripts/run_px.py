@@ -35,7 +35,7 @@ def main(argv=None):
 
     from coverage_report import scan_family
     from nmc_tpu.beam_chimera import pad_to_chimera_grid
-    from nmc_tpu.beam_chimera_tpu import quantize_problem
+    from nmc_tpu.beam_chimera_device import quantize_problem
     from nmc_tpu.refine import (_family_instances, _int_energy,
                                 grid_family_folders, partition_crossover,
                                 tree_refine_state)

@@ -1,7 +1,7 @@
 #!/bin/bash
 # Spectral arm over EVERY shipped wishart_planting folder (161 in
 # NPT/examples/wishart_small + 5 in NMC/examples/contrived_wishart_backbone)
-# — host-only (no TPU), ~ms per instance. One JSONL row file per folder
+# — host-only (no accelerator), ~ms per instance. One JSONL row file per folder
 # under results/campaign/spectral_all/.
 set -e
 cd /root/repo

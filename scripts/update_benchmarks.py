@@ -1,35 +1,19 @@
-"""Regenerate the generated sections of the docs of record.
+"""Regenerate the generated section of the docs of record.
 
-1. COVERAGE: reruns scripts/coverage_report.py (refreshing
-   results/any_tier_coverage.json from the raw per-instance artifacts)
-   and rewrites the any-tier scoreboard between the COVERAGE-BEGIN/END
-   markers in BOTH docs/BENCHMARKS.md and README.md. The docs of
-   record cannot drift from the artifact: they ARE the artifact.
-2. CAMPAIGN: regenerates the per-run TTS table from
-   results/campaign/*.jsonl between the CAMPAIGN-BEGIN/END markers in
-   docs/BENCHMARKS.md, and refreshes the campaign figures.
+Reruns scripts/coverage_report.py (refreshing
+results/any_tier_coverage.json from the raw per-instance artifacts) and
+rewrites the any-tier scoreboard between the COVERAGE-BEGIN/END markers
+in BOTH docs/BENCHMARKS.md and README.md. The docs of record cannot
+drift from the artifact: they ARE the artifact.
 
 Usage: python scripts/update_benchmarks.py
 """
 
-import glob
 import io
 import os
 import sys
 from contextlib import redirect_stdout
 
-sys.path.insert(0, "/root/repo")
-
-import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
-from nmc_tpu.campaign import summarize  # noqa: E402
-from nmc_tpu.utils.plotting import (plot_campaign,  # noqa: E402
-                                    plot_hardness_curve)
-
-BEGIN = "<!-- CAMPAIGN-BEGIN (generated by scripts/update_benchmarks.py) -->"
-END = "<!-- CAMPAIGN-END -->"
 COV_BEGIN = "<!-- COVERAGE-BEGIN (generated by scripts/update_benchmarks.py) -->"
 COV_END = "<!-- COVERAGE-END -->"
 DOC = "docs/BENCHMARKS.md"
@@ -95,89 +79,6 @@ def main():
     _splice(README, COV_BEGIN, COV_END, cov)
     print("coverage section regenerated into "
           f"{DOC} and {README} from results/any_tier_coverage.json")
-    paths = sorted(glob.glob("results/campaign/*.jsonl"))
-    buf = io.StringIO()
-    with redirect_stdout(buf):
-        summarize(paths)
-    table = buf.getvalue()
-
-    os.makedirs("docs/figures", exist_ok=True)
-    figs = []
-    fam_groups = {
-        "chimera512_matched": [p for p in paths
-                               if "chimera512" in p and "3200k" in p],
-        "chimera512_all100": [p for p in paths
-                              if "chimera512" in p and "all100" in p],
-        "chimera2048": [p for p in paths if "chimera2048" in p],
-        "chimera1152": [p for p in paths if "chimera1152" in p],
-        "dcl": [p for p in paths if "dcl" in p],
-        "contrived_n50": [p for p in paths
-                          if "contrived_n50" in p and "explore" not in p],
-    }
-    for tag, ps in fam_groups.items():
-        if ps:
-            out = f"docs/figures/campaign_{tag}.png"
-            plot_campaign(ps, out)
-            figs.append(out)
-    # include the alpha=0.50 runs whose filenames predate the _aX.XX
-    # convention (wishart_n40_{pt,nmc,icm}.jsonl; meta.family carries the
-    # alpha for the curve parser)
-    wish = [p for p in paths if "wishart_n40" in p]
-    if wish:
-        out = "docs/figures/campaign_wishart_hardness.png"
-        plot_hardness_curve(wish, out)
-        figs.append(out)
-    # deep-budget convergence traces (campaign --trace artifacts)
-    traces = sorted(glob.glob("results/campaign/*_10M.jsonl.trace"))
-    if traces:
-        from nmc_tpu.utils.plotting import plot_residual_trace
-        out = "docs/figures/campaign_deep_budget_traces.png"
-        plot_residual_trace(traces, out)
-        figs.append(out)
-    # full (N, alpha) grid -> hardness surface heatmaps (round 3)
-    surf = [p for p in paths
-            if os.path.basename(p).startswith("wishart_n")]
-    if surf:
-        from nmc_tpu.utils.plotting import plot_hardness_surface
-        try:
-            out = "docs/figures/campaign_wishart_surface.png"
-            plot_hardness_surface(surf, out)
-            figs.append(out)
-        except ValueError:
-            pass
-
-    section = [BEGIN, "",
-               "All instances of a family are solved in ONE batched SPMD "
-               "program (`python -m nmc_tpu campaign`); TTS is the shared "
-               "ensemble wall clock at each instance's first f64-verified "
-               "ground-state hit. Targets are the reference's shipped exact "
-               "energies (groundstates_otn2d.txt / gs_energies.txt / "
-               "*_sol.txt); the contrived tree family has no shipped truth "
-               "and is scored against cross-arm best-known energies.", "",
-               table.rstrip(), ""]
-    if figs:
-        section.append("Figures: " + ", ".join(f"`{f}`" for f in figs))
-        section.append("")
-    section.append(END)
-
-    doc = open(DOC).read()
-    if BEGIN in doc:
-        if END not in doc:
-            raise SystemExit(
-                f"{DOC} has the CAMPAIGN-BEGIN marker but no CAMPAIGN-END "
-                "marker; restore the END marker before regenerating")
-        pre = doc.split(BEGIN)[0]
-        post = doc.split(END)[1]
-        doc = pre + "\n".join(section) + post
-    else:
-        doc = doc.rstrip() + ("\n\n## Solution-quality campaign "
-                              "(round 2, full families)\n\n"
-                              + "\n".join(section) + "\n")
-    with open(DOC, "w") as f:
-        f.write(doc)
-    print(f"updated {DOC} with {len(paths)} campaign files, "
-          f"{len(figs)} figures")
-
 
 if __name__ == "__main__":
     main()

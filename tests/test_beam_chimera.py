@@ -94,10 +94,10 @@ def test_refine_strips_fixed_point_at_optimum():
 
 def test_device_beam_parity_int_dp():
     """The jitted int32 device beam (CPU backend here; same program on
-    TPU) matches the dense exact DP on a rational-coupling chimera."""
+    the device) matches the dense exact DP on a rational-coupling chimera."""
     from nmc_tpu import IsingProblem
-    from nmc_tpu.beam_chimera_tpu import (quantize_problem,
-                                          solve_beam_chimera_tpu)
+    from nmc_tpu.beam_chimera_device import (quantize_problem,
+                                          solve_beam_chimera_device)
     from nmc_tpu.exact_chimera import solve_exact_chimera
 
     p0 = synth_chimera(3, 2, seed=4)
@@ -106,7 +106,7 @@ def test_device_beam_parity_int_dp():
     _, _, q = quantize_problem(prob)
     assert q == 8
     e_ref, _ = solve_exact_chimera(prob, rows=3, cols=2)
-    e, s, info = solve_beam_chimera_tpu(prob, rows=3, cols=2, beam=4096)
+    e, s, info = solve_beam_chimera_device(prob, rows=3, cols=2, beam=4096)
     assert abs(e - e_ref) < 1e-9
     assert abs(float(prob.energy(s)) - e) < 1e-9
     assert info["e_int"] == int(round(e_ref * 8))
@@ -114,20 +114,20 @@ def test_device_beam_parity_int_dp():
 
 @pytest.mark.parametrize("split", [2, 4])
 def test_device_beam_split_merge_matches_single_pass(split):
-    """The two-pass sort-merge (split>1, the beam-2^17 path on TPU)
+    """The two-pass sort-merge (split>1, the beam-2^17 path)
     keeps the same optimal energy and a valid state as the single-pass
     program, and still matches the dense exact DP when unpruned."""
     from nmc_tpu import IsingProblem
-    from nmc_tpu.beam_chimera_tpu import solve_beam_chimera_tpu
+    from nmc_tpu.beam_chimera_device import solve_beam_chimera_device
     from nmc_tpu.exact_chimera import solve_exact_chimera
 
     p0 = synth_chimera(3, 2, seed=11)
     prob = IsingProblem(np.round(np.asarray(p0.J) * 4) / 8,
                         np.round(np.asarray(p0.h) * 4) / 8)
     e_ref, _ = solve_exact_chimera(prob, rows=3, cols=2)
-    e1, s1, i1 = solve_beam_chimera_tpu(prob, rows=3, cols=2, beam=4096,
+    e1, s1, i1 = solve_beam_chimera_device(prob, rows=3, cols=2, beam=4096,
                                         split=1)
-    e2, s2, i2 = solve_beam_chimera_tpu(prob, rows=3, cols=2, beam=4096,
+    e2, s2, i2 = solve_beam_chimera_device(prob, rows=3, cols=2, beam=4096,
                                         split=split)
     assert i1["split"] == 1 and i2["split"] == split
     assert abs(e1 - e_ref) < 1e-9 and abs(e2 - e_ref) < 1e-9
@@ -137,14 +137,14 @@ def test_device_beam_split_merge_matches_single_pass(split):
 
 def test_device_beam_split_auto_policy():
     """split=None chunks so no sort exceeds 2^24 elements."""
-    from nmc_tpu.beam_chimera_tpu import solve_beam_chimera_tpu
+    from nmc_tpu.beam_chimera_device import solve_beam_chimera_device
     from nmc_tpu import IsingProblem
 
     p0 = synth_chimera(2, 2, seed=12)
     prob = IsingProblem(np.round(np.asarray(p0.J) * 4) / 8,
                         np.round(np.asarray(p0.h) * 4) / 8)
     # tiny beams stay single-pass
-    _, _, info = solve_beam_chimera_tpu(prob, rows=2, cols=2, beam=256)
+    _, _, info = solve_beam_chimera_device(prob, rows=2, cols=2, beam=256)
     assert info["split"] == 1
     # the auto rule itself (no giant solve on CPU): 2^17*256 -> split 2
     M = 1 << 17
@@ -166,8 +166,8 @@ def test_device_beam_5decimal_print_rounding():
     problem is the TRUE instance; verify must accept the residual and
     the integer optimum must match the exact DP on the snapped problem."""
     from nmc_tpu import IsingProblem
-    from nmc_tpu.beam_chimera_tpu import (quantize_problem,
-                                          solve_beam_chimera_tpu)
+    from nmc_tpu.beam_chimera_device import (quantize_problem,
+                                          solve_beam_chimera_device)
     from nmc_tpu.exact_chimera import solve_exact_chimera
 
     p0 = synth_chimera(3, 2, seed=6)
@@ -177,14 +177,14 @@ def test_device_beam_5decimal_print_rounding():
     Jq, hq, q = quantize_problem(prob)
     assert q == 7
     np.testing.assert_array_equal(Jq, np.round(J7 * 7))   # snap == truth
-    e, s, info = solve_beam_chimera_tpu(prob, rows=3, cols=2, beam=4096)
+    e, s, info = solve_beam_chimera_device(prob, rows=3, cols=2, beam=4096)
     e_ref, _ = solve_exact_chimera(IsingProblem(J7, h7), rows=3, cols=2)
     assert info["e_int"] == int(round(e_ref * 7))
     assert abs(float(prob.energy(s)) - e) < 1e-9
 
 
 def test_quantize_rejects_irrational():
-    from nmc_tpu.beam_chimera_tpu import quantize_problem
+    from nmc_tpu.beam_chimera_device import quantize_problem
 
     prob = synth_chimera(2, 2, seed=1)      # gaussian couplings
     with pytest.raises(ValueError):

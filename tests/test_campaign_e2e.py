@@ -1,7 +1,7 @@
 """End-to-end campaign engine test on CPU: solve_ensemble_batch through
 the CLI main, on a tiny shipped wishart folder with exact ground truths —
 covers record streaming, --trace residual curves, the .partial crash
-snapshot, and per-instance resume (the machinery the TPU deep-budget runs
+snapshot, and per-instance resume (the machinery the deep-budget device runs
 depend on)."""
 
 import json

@@ -60,17 +60,7 @@ elif what == "ensemble":
 elif what == "ensemble_nmc":
     # the campaign engine across processes: full NPT+NMC rounds (LBP
     # backbone extraction + heated phases + label swaps) per instance
-    # under a 2-process global mesh. round_kernel must be "off" here:
-    # interpret-mode pallas_call inside shard_map DEADLOCKS in a
-    # multi-process runtime (the interpreter is not SPMD-safe); the
-    # kernel path is covered by single-process interpret tests
-    # (test_round_pallas.py) and on real TPU hardware. A COMPILED
-    # (non-interpret) Pallas run under this 2-process CPU mesh was
-    # retried in round 5 and is a toolchain impossibility, not a skip:
-    # jax 0.9.0's CPU backend raises "Only interpret mode is supported
-    # on CPU backend" from pallas_call lowering — multi-process kernel
-    # validation therefore requires a multi-chip TPU runtime, which
-    # this environment does not provide.
+    # under a 2-process global mesh (the XLA sweep path on the CPU).
     from nmc_tpu.parallel.ensemble_nmc import EnsembleNMC
     from nmc_tpu.parallel.sharded_pt import ShardedNPTConfig
     probs = [ea_2d(6, seed=s).normalized()[0] for s in range(8)]
@@ -80,7 +70,7 @@ elif what == "ensemble_nmc":
     cfg = ShardedNPTConfig(sweeps_per_phase=2, num_cycles=1,
                            num_swapping_pairs=2, use_coloring=True,
                            block_size=16, lbp_mode="sparse",
-                           lbp_max_iterations=5, round_kernel="off")
+                           lbp_max_iterations=5)
     ens = EnsembleNMC(probs, np.geomspace(0.3, 3.0, 8),
                       [False] * 6 + [True] * 2, cfg,
                       mesh=distributed.global_mesh(axis_name="instance"))
@@ -96,8 +86,7 @@ elif what == "ensemble_hybrid":
     probs = [random_sk(10, seed=s).normalized()[0] for s in range(8)]
     cfg = EnsembleICMConfig(sweeps_per_round=6, num_subreplicas=2,
                             num_swapping_pairs=1, block_size=16,
-                            hybrid_cold=2, num_cycles=1,
-                            round_kernel="off")
+                            hybrid_cold=2, num_cycles=1)
     ens = EnsembleICM(probs, np.geomspace(0.3, 3.0, 6), cfg,
                       mesh=distributed.global_mesh(axis_name="instance"))
     state = ens.init_state(jax.random.PRNGKey(3))
@@ -155,8 +144,7 @@ class TestTwoProcessMesh:
         assert all(np.isfinite(x) for x in a["best"])
 
     def test_ensemble_nmc_two_processes(self):
-        # VERDICT r3 item 8: the campaign engine itself (EnsembleNMC with
-        # the round kernel, interpret mode) proven across processes
+        # the campaign engine itself (EnsembleNMC) across processes
         a, b = _run_two_process("ensemble_nmc", timeout=540)
         assert a == b
         assert len(a["best"]) == 8

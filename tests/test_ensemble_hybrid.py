@@ -20,8 +20,7 @@ from nmc_tpu.parallel import EnsembleICM, EnsembleICMConfig
 def _hybrid_cfg(**kw):
     base = dict(sweeps_per_round=12, num_subreplicas=4,
                 num_swapping_pairs=1, block_size=16,
-                hybrid_cold=3, temp_x=10.0, num_cycles=2,
-                round_kernel="off")
+                hybrid_cold=3, temp_x=10.0, num_cycles=2)
     base.update(kw)
     return EnsembleICMConfig(**base)
 
@@ -105,21 +104,19 @@ class TestHybridArm:
 
 
 class TestHybridKernelPath:
-    def _ens(self, round_kernel):
+    def _ens(self):
         probs = [ea_2d(6, seed=s).normalized()[0] for s in range(4)]
         cfg = EnsembleICMConfig(sweeps_per_round=12, num_subreplicas=2,
                                 num_swapping_pairs=2, use_coloring=True,
-                                block_size=16, round_kernel=round_kernel,
+                                block_size=16,
                                 hybrid_cold=2, temp_x=10.0, num_cycles=2)
         beta = np.geomspace(0.3, 4.0, 8)
         return probs, EnsembleICM(probs, beta, cfg)
 
     def test_hybrid_kernel_contract(self):
-        # interpret-mode round kernel with heated cycles: contract only
-        # (prng_random_bits is zeros under interpretation; statistics need
-        # real TPU)
-        probs, ens = self._ens("on")
-        assert ens._use_round_kernel
+        # colored layout with heated cycles, through the sweep stage the
+        # implementation choice picks (the XLA path on the CPU)
+        probs, ens = self._ens()
         assert ens._cycles == 2
         state = ens.init_state(jax.random.PRNGKey(0))
         state = ens.run_scanned(state, 4)
@@ -137,7 +134,7 @@ class TestHybridKernelPath:
         probs = [ea_2d(6, seed=0).normalized()[0]]
         cfg = EnsembleICMConfig(sweeps_per_round=9, num_subreplicas=2,
                                 num_swapping_pairs=1, use_coloring=True,
-                                block_size=16, round_kernel="on",
+                                block_size=16,
                                 hybrid_cold=2, num_cycles=2)
         with pytest.raises(ValueError, match="3\\*num_cycles"):
             EnsembleICM(probs, np.geomspace(0.3, 4.0, 8), cfg)

@@ -105,86 +105,64 @@ def test_reference_truth_verified_exactly():
     assert e == gs_raw                    # integers: bitwise equality
 
 
-def test_pallas_interpret_matches_host():
-    """Fused MITM kernel (interpret mode): bitwise agreement with the
-    host path, including the +inf row padding when block_a does not
-    divide the A table."""
-    from nmc_tpu.exact import solve_exact_host, solve_exact_pallas
-    from nmc_tpu.io.generators import wishart_planted
-
-    prob, t, gs = wishart_planted(18, 0.5, seed=7)
-    e_h, _ = solve_exact_host(prob)
-    e_p, s_p = solve_exact_pallas(prob, block_a=64, block_b=128,
-                                  interpret=True)
-    assert e_p == e_h
-    assert abs(float(prob.energy(s_p)) - e_p) < 1e-9
-
-
-@pytest.mark.parametrize("planes", ["off", "auto"])
-def test_pallas_interpret_padded_grid(rng, planes):
-    # integer couplings: "auto" exercises the int8 digit-plane kernel's
-    # row padding (I32_PAD sentinel), "off" the f32 kernel's +inf rows
+@pytest.mark.parametrize("block_a,block_b", [(48, 64), (1024, 1 << 15)])
+def test_device_padded_grid_matches_host(rng, block_a, block_b):
+    # block_a not dividing the A table pads it with +inf rows; the
+    # default blocks clamp to the table
     from nmc_tpu import IsingProblem
-    from nmc_tpu.exact import solve_exact_host, solve_exact_pallas
+    from nmc_tpu.exact import solve_exact_device, solve_exact_host
 
     J = np.round(10 * rng.normal(size=(15, 15)))
     J = np.triu(J, 1)
     J = J + J.T
     prob = IsingProblem(J, np.zeros(15))   # a=7, sym -> TA=64; pad to 96
     e_h, _ = solve_exact_host(prob)
-    e_p, _ = solve_exact_pallas(prob, block_a=48, block_b=64,
-                                interpret=True, planes=planes)
-    assert e_p == e_h
+    e_d, s_d = solve_exact_device(prob, block_a=block_a, block_b=block_b)
+    assert e_d == e_h
+    assert float(prob.energy(s_d)) == e_d
 
 
-def test_int8_planes_roundtrip(rng):
-    from nmc_tpu.ops.exact_pallas import int8_planes
-
-    C = np.round(rng.normal(size=(9, 33)) * 3e7)   # needs 4 digit planes
-    P = int8_planes(C)
-    assert P.dtype == np.int8 and P.shape[1:] == C.shape
-    back = sum((1 << (8 * k)) * P[k].astype(np.int64)
-               for k in range(P.shape[0]))
-    np.testing.assert_array_equal(back, C.astype(np.int64))
-    with pytest.raises(ValueError):
-        int8_planes(np.array([0.5]))
+def _write_instance(tmp_path, prob):
+    from nmc_tpu.io.writers import save_edgelist
+    path = str(tmp_path / "inst.txt")
+    save_edgelist(path, prob)
+    return path
 
 
-def test_pallas_i8_matches_host_multiplane(rng):
-    """int8 kernel with couplings big enough to need 3 digit planes —
-    exact match with the f64 host path (and beyond the f32 kernel's 2^24
-    window, which must refuse)."""
-    from nmc_tpu import IsingProblem
-    from nmc_tpu.exact import (exact_energy_bound, solve_exact_host,
-                               solve_exact_pallas)
+@pytest.mark.parametrize("n,tier", [(20, "host"), (32, "device")])
+def test_exact_cli_auto_routes_by_size(tmp_path, capsys, n, tier):
+    import json
 
-    J = np.round(rng.normal(size=(16, 16)) * 3_000_000)
-    J = np.triu(J, 1)
-    J = J + J.T
-    prob = IsingProblem(J, np.zeros(16))
-    assert float(1 << 24) < exact_energy_bound(J) < float(1 << 29)
-    # individual half-energies/cross terms must exceed f32's exact-int
-    # window so the f64 table stopover (not just the planes) is exercised
-    from nmc_tpu.exact import _b_tables, _split
-    a, b = _split(J, np.zeros(16))
-    EBchk, CBTchk = _b_tables(J, np.zeros(16), a, b, dtype=np.float64)
-    assert max(np.abs(EBchk).max(), np.abs(CBTchk).max()) > float(1 << 24)
-    e_h, _ = solve_exact_host(prob)
-    e_p, s_p = solve_exact_pallas(prob, block_a=64, block_b=128,
-                                  interpret=True, planes="on")
-    assert e_p == e_h
-    assert float(prob.energy(s_p)) == e_p
-    with pytest.raises(ValueError, match="2\\^24"):
-        solve_exact_pallas(prob, interpret=True, planes="off")
+    from nmc_tpu.cli import main
+    from nmc_tpu.exact import solve_exact_host
+    from nmc_tpu.io.generators import random_sk
+
+    prob = random_sk(n, seed=n)
+    rc = main(["exact", _write_instance(tmp_path, prob), "--kind",
+               "wishart", "--block-a", "64", "--block-b", "256"])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and rec["backend"] == tier and rec["n"] == n
+    if n <= 24:
+        assert abs(rec["energy_raw"] - solve_exact_host(prob)[0]) < 1e-9
 
 
-def test_pallas_planes_on_rejects_float_couplings():
-    from nmc_tpu.exact import solve_exact_pallas
-    from nmc_tpu.io.generators import wishart_planted
+def test_exact_cli_auto_raises_past_limit(tmp_path):
+    from nmc_tpu.cli import EXACT_DEVICE_MAX_N, main
+    from nmc_tpu.io.generators import random_sk
 
-    prob, _, _ = wishart_planted(14, 0.5, seed=3)
-    with pytest.raises(ValueError, match="integer-coupled"):
-        solve_exact_pallas(prob, interpret=True, planes="on")
+    prob = random_sk(EXACT_DEVICE_MAX_N + 4, seed=1)
+    with pytest.raises(SystemExit, match=f"n <= {EXACT_DEVICE_MAX_N}"):
+        main(["exact", _write_instance(tmp_path, prob), "--kind",
+              "wishart"])
+
+
+def test_exact_cli_has_no_pallas_tier(tmp_path):
+    from nmc_tpu.cli import main
+    from nmc_tpu.io.generators import random_sk
+
+    path = _write_instance(tmp_path, random_sk(12, seed=0))
+    with pytest.raises(SystemExit):
+        main(["exact", path, "--backend", "pallas"])
 
 
 def test_enum_proves_optimality(rng):

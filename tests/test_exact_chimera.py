@@ -5,6 +5,8 @@ truths but no solver — groundstates_otn2d.txt is an external artifact;
 nmc_tpu/exact_chimera.py makes the chimera128 family independently
 checkable)."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -98,6 +100,8 @@ def test_shipped_chimera128_truth_rederived():
     """Re-derive a shipped tnac4o ground truth from scratch; the state's
     energy must reproduce groundstates_otn2d.txt's value to its print
     precision."""
+    if not os.path.exists(CHIMERA128):
+        pytest.skip("reference checkout not available")
     from nmc_tpu.evaluation import chimera_folder_instances
     from nmc_tpu.exact_chimera import solve_exact_chimera
 

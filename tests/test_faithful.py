@@ -3,7 +3,7 @@
 BASELINE.json requires fixed-seed min-energy trajectory reproduction within
 float64 tolerance. Exact bit-reproduction of the REFERENCE is impossible
 across RNG families (docs/DEVIATIONS.md #1); what is verifiable — and
-verified here — is that the TPU engine's sequential path and the
+verified here — is that the device engine's sequential path and the
 reference-faithful host kernel produce IDENTICAL trajectories when fed the
 same uniform draws and scan order, i.e. the device kernel implements
 exactly the reference's update rule.

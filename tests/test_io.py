@@ -195,6 +195,11 @@ class TestContrivedReferenceParity:
     CORES = ("/root/reference/NMC/examples/contrived_wishart_backbone/"
              "wishart_planting_N_10_alpha_0.20")
 
+    @pytest.fixture(autouse=True)
+    def _needs_reference(self):
+        if not os.path.exists(self.REF):
+            pytest.skip("reference checkout not available")
+
     def test_structure_matches_shipped_instance(self, tmp_path):
         """Same topology class as a reference-GENERATED instance: node
         count, complete core, binary-tree degrees, core scale, h range."""

@@ -79,13 +79,11 @@ class TestLBPPlanes:
     def _setup(self, limit=1):
         import jax.numpy as jnp
         from nmc_tpu.core.problem import block_problem, block_sparse_tiles
-        from nmc_tpu.evaluation import chimera_folder_instances
+        from nmc_tpu.io.generators import chimera_graph
         from nmc_tpu.ops.lbp_planes import (build_edge_slot_planes,
                                             w_slot_from_tiles)
-        folder = ("/root/reference/NMC/examples/Chimera_droplet_instances/"
-                  "chimera128_spinglass_power")
-        name, prob, _ = next(iter(chimera_folder_instances(folder, limit)))
-        prob = prob.normalized()[0]
+        # a seeded C_{4,4,4} (128 spins, the chimera128 family's topology)
+        prob = chimera_graph(4, 4, seed=0, pm=False).normalized()[0]
         bl = block_problem(prob, block_size=128)
         Jb = bl.J_rows.reshape(bl.n_pad, bl.n_pad)
         col_idx, J_tiles = block_sparse_tiles(bl)

@@ -158,7 +158,7 @@ class TestDeviceLabels:
         default Houdayer path on bounded-degree topologies) reaches the
         same exact component-min labels as the edge-list segment_min
         path, including the hi/lo byte split that keeps label values
-        exact through the TPU MXU's bf16 default-precision passes."""
+        exact through bf16 planes and TF32 default-precision matmuls."""
         import jax.numpy as jnp
         from nmc_tpu.core.problem import block_problem, block_sparse_tiles
         from nmc_tpu.ops.clusters import (build_neighbor_planes,
